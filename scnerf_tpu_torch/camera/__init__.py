@@ -1,0 +1,9 @@
+from scnerf_tpu_torch.camera.model import (
+    CAMERA_LEAVES, OPENCV, OPENGL, Camera, CameraConfig, get_distortion,
+    get_extrinsic, get_extrinsics, get_intrinsic, init_camera, ray_d_noise_at,
+    ray_o_noise_at, sample_noise_grid,
+)
+from scnerf_tpu_torch.camera.rays import (
+    apply_radial_distortion, full_image_pixels, pixels_to_rays,
+    rays_full_image, rays_no_camera,
+)

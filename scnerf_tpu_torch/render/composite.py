@@ -1,0 +1,64 @@
+"""Alpha compositing of raw field outputs along rays.
+
+Port of ``scnerf_tpu/render/composite.py:raw2outputs``:
+``alpha = 1 - exp(-act(sigma) * dist)``, exclusive-cumprod transmittance with
+the ``+1e-10`` guard, depth/disparity/accumulation maps, optional white
+background.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def raw2outputs(
+    raw: torch.Tensor,
+    z_vals: torch.Tensor,
+    rays_d: torch.Tensor,
+    raw_noise_std: float = 0.0,
+    white_bkgd: bool = False,
+    generator: torch.Generator | None = None,
+    sigma_activation: str = "relu",
+    noise: torch.Tensor | None = None,
+) -> dict[str, torch.Tensor]:
+    """Composite raw ``(N, S, 4)`` samples at depths ``(N, S)`` into per-ray
+    maps: rgb ``(N, 3)``, disp/acc/depth ``(N,)``, weights ``(N, S)``.
+
+    ``noise``: injected standard normals ``(N, S)``, scaled by
+    ``raw_noise_std``; else drawn from ``generator`` when that std is > 0.
+    """
+    dists = z_vals[..., 1:] - z_vals[..., :-1]
+    dists = torch.cat([dists, torch.full_like(dists[..., :1], 1e10)], dim=-1)
+    dists = dists * torch.linalg.vector_norm(rays_d, dim=-1, keepdim=True)
+
+    rgb = torch.sigmoid(raw[..., :3])
+    sigma = raw[..., 3]
+    if noise is not None:
+        sigma = sigma + noise * raw_noise_std
+    elif raw_noise_std > 0.0:
+        sigma = sigma + torch.randn(
+            sigma.shape, generator=generator, device=sigma.device) * raw_noise_std
+    if sigma_activation == "relu":
+        sigma = torch.relu(sigma)
+    elif sigma_activation == "abs":
+        sigma = torch.abs(sigma)
+    else:
+        raise ValueError(sigma_activation)
+
+    alpha = 1.0 - torch.exp(-sigma * dists)
+    trans = torch.cumprod(1.0 - alpha + 1e-10, dim=-1)
+    trans = torch.cat([torch.ones_like(trans[..., :1]), trans[..., :-1]], dim=-1)
+    weights = alpha * trans
+
+    rgb_map = torch.sum(weights[..., None] * rgb, dim=-2)
+    depth_map = torch.sum(weights * z_vals, dim=-1)
+    acc_map = torch.sum(weights, dim=-1)
+    disp_map = 1.0 / torch.clamp(depth_map / (acc_map + 1e-10), min=1e-10)
+    if white_bkgd:
+        rgb_map = rgb_map + (1.0 - acc_map[..., None])
+    return {
+        "rgb": rgb_map,
+        "disp": disp_map,
+        "acc": acc_map,
+        "weights": weights,
+        "depth": depth_map,
+    }
