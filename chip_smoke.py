@@ -1,4 +1,5 @@
-"""Drive the PyTorch port's NeRF serving path once on an NVIDIA card.
+"""Drive the PyTorch port's NeRF and NeRF++ serving paths once on an NVIDIA
+card.
 
     python3 chip_smoke.py
 
@@ -23,9 +24,30 @@ the JAX package. Phases, each of which exits non-zero when it fails:
 4. The card against the CPU port: 1,024 of those rays through the same
    serve function on the CPU (which takes the plain twin): rgb median
    |err| < 1e-5 and max < 1e-3.
+5. K2, the NeRF++ inverse-CDF CUDA kernel under its autograd function,
+   against its plain twin on the card: the serving shape (4096 rays, 63 bins,
+   128 samples), 62 and 64 bins, deterministic and random u, and ragged
+   sizes, with empty rays and empty bins; values by phase 2's criterion;
+   gradients into bins, weights and u under a random cotangent against the
+   twin's autograd (under 0.2% of entries off by more than 1e-4 of the
+   largest); time per call of both, as in phase 2.
+6. The NeRF++ serving slice at full width: the Tanks&Temples Truck model
+   (fg and bg MLPNets 8x256, skip at 4, 10/4 frequencies, cascade 64,128)
+   with seeded random weights, the learnable OpenCV camera (pixel offset
+   0.5, multiplicative intrinsics noise) at 546x980 with noise on every
+   learnable leaf, eval mode, min depth 1e-4, behind a RenderService of
+   batch 4096. Three requests: 1,000 random pixels, 65,536 random pixels
+   and one full image (131 batches). Outputs must be finite, rgb and
+   bg_lambda in [0, 1], shapes right, and K2 launched at least twice per
+   batch served. Also the share of rays whose last bin weighs under 1e-6
+   (the deterministic u = 1.0 then meets the denominator guard).
+7. The card against the CPU port for NeRF++: 512 of those rays: rgb median
+   |err| < 1e-5 and max < 1e-3.
 
-The line before the last is one JSON object with the kernels' numbers; the
-last line is ``{"ok": true, "device": {...}}``.
+Each serving path runs with both kernels' launch counts set to 0 just
+before it and read just after. The line before the last is one JSON object
+with the kernels' numbers; the last line is ``{"ok": true, "device":
+{...}}``.
 """
 from __future__ import annotations
 
@@ -48,6 +70,18 @@ SEED = 0
 PDF_SHAPES = ((BATCH, 63, 64), (BATCH, 62, 64), (BATCH, 64, 64))
 TIMING_CALLS = 50
 TIMING_REPEATS = 5
+
+# NeRF++: configs/tanks_and_temples/tat_training_Truck_ours.txt at the
+# camera of bench.py's NeRF++ workload.
+PP_H, PP_W = 546, 980
+PP_FOCAL = 580.0
+PP_IMAGES = 12
+PP_BATCH = 4096  # chunk_size
+PP_CASCADE = (64, 128)
+PP_SHAPES = ((PP_BATCH, 63, 128), (PP_BATCH, 62, 128), (PP_BATCH, 64, 128))
+PP_RAGGED = ((1, 2, 1), (5, 17, 33), (1027, 63, 100))
+PP_PIXEL_REQUESTS = (1000, 65536)
+PP_CPU_RAYS = 512
 
 
 def require(ok: bool, what: str) -> None:
@@ -190,7 +224,7 @@ def phase_slice(dev, card, slice_):
     request(*requests["1000_pixels"])  # warm-up: cuBLAS handles, allocator
     torch.cuda.synchronize()
 
-    pdf_cuda.launches = 0
+    pdf_cuda.launches = pdf_cuda.diff_launches = 0
     outputs, rates = {}, {}
     for name, (rays_o, rays_d) in requests.items():
         torch.cuda.synchronize()
@@ -199,6 +233,7 @@ def phase_slice(dev, card, slice_):
         seconds = time.perf_counter() - t0
         rates[name] = rays_o.shape[0] / seconds
     launches = pdf_cuda.launches
+    print(f"  K2 launches on the NeRF path: {pdf_cuda.diff_launches}")
 
     chunks = 0
     for name, (rays_o, _) in requests.items():
@@ -252,6 +287,217 @@ def phase_cpu_agreement(slice_, requests, outputs):
     require(cam_err < 1e-5, f"card vs CPU camera ray error {cam_err}")
 
 
+def resample_inputs(rng, n, b, dev):
+    """Sorted bins and weights with empty rays (the eps makes them uniform)
+    and empty bins (guarded denominators)."""
+    bins = np.sort(rng.uniform(2.0, 6.0, (n, b)).astype(np.float32), axis=-1)
+    weights = rng.random((n, b - 1)).astype(np.float32)
+    weights[: n // 8] = 0.0
+    weights[n // 8: n // 4, ::3] = 0.0
+    return torch.from_numpy(bins).to(dev), torch.from_numpy(weights).to(dev)
+
+
+def check_resample(got, want, bins, what):
+    """Phase 2's criterion; returns (median, max) |err|."""
+    err = (got - want).abs()
+    med = float(err.median())
+    flips = float((err > 1e-4).float().mean())
+    lo = float(got.min()) >= float(bins.min()) - 1e-5
+    hi = float(got.max()) <= float(bins.max()) + 1e-5
+    require(med < 1e-6, f"{what}: median error {med}")
+    require(flips < 1e-3, f"{what}: boundary-flip share {flips}")
+    require(lo and hi, f"{what}: output outside the bins")
+    return med, float(err.max()), flips
+
+
+def phase_k2(dev):
+    from scnerf_tpu_torch.kernels import pdf_cuda
+    from scnerf_tpu_torch.sampling.pdf import pdf_uniforms, sample_pdf
+
+    print("== phase 5: K2 sample_pdf_nerfpp kernel against its plain twin on the card")
+    rng = np.random.default_rng(SEED + 2)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    record = None
+
+    def kernel(bins, weights, u):
+        with torch.inference_mode():  # as the serving path calls it
+            return pdf_cuda.sample_pdf_diff(bins, weights, u, "nerfpp")
+
+    def plain(bins, weights, u):
+        with torch.inference_mode():
+            return sample_pdf(None, bins, weights, u.shape[1], u=u, variant="nerfpp")
+
+    def grads(fn, bins, weights, u, cot):
+        leaves = [x.clone().requires_grad_() for x in (bins, weights, u)]
+        (fn(*leaves) * cot).sum().backward()
+        return [x.grad for x in leaves]
+
+    for n, b, s in PP_SHAPES:
+        bins, weights = resample_inputs(rng, n, b, dev)
+        for det in (True, False):
+            what = f"K2 at {(n, b, s)} det={det}"
+            u = pdf_uniforms(gen, n, s, det, device=dev)
+            got, want = kernel(bins, weights, u), plain(bins, weights, u)
+            torch.cuda.synchronize()
+            med, mx, flips = check_resample(got, want, bins, what)
+            cot = torch.randn(u.shape, generator=gen, device=dev)
+            off = []
+            for name, gk, gp in zip(("bins", "weights", "u"), grads(
+                    lambda b_, w_, u_: pdf_cuda.sample_pdf_diff(b_, w_, u_, "nerfpp"),
+                    bins, weights, u, cot), grads(
+                    lambda b_, w_, u_: sample_pdf(None, b_, w_, s, u=u_, variant="nerfpp"),
+                    bins, weights, u, cot)):
+                frac = float(((gk - gp).abs() / (gp.abs().max() + 1e-8) > 1e-4).float().mean())
+                off.append(f"{name} {frac:.2e}")
+                require(frac < 2e-3, f"{what}: gradient into {name}, {frac} of entries off")
+            ms = per_call_ms(lambda: kernel(bins, weights, u))
+            plain_ms = per_call_ms(lambda: plain(bins, weights, u))
+            print(f"  bins ({n},{b}) u ({n},{s}) det={det}: median|err|={med:.3e} "
+                  f"max|err|={mx:.3e} share>1e-4={flips:.2e} grads off: {', '.join(off)}; "
+                  f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f}")
+            if (b, det) == (63, True):  # the serving path's shape
+                record = dict(max_abs_err=mx, ms=ms, plain_ms=plain_ms)
+    for n, b, s in PP_RAGGED:
+        bins, weights = resample_inputs(rng, n, b, dev)
+        u = pdf_uniforms(gen, n, s, False, device=dev)
+        got, want = kernel(bins, weights, u), plain(bins, weights, u)
+        torch.cuda.synchronize()
+        med, mx, _ = check_resample(got, want, bins, f"K2 at {(n, b, s)}")
+        print(f"  ragged ({n},{b}) u ({n},{s}): median|err|={med:.3e} max|err|={mx:.3e}")
+    return record
+
+
+def make_nerfpp_slice(dev):
+    from scnerf_tpu_torch.camera import CameraConfig, OPENCV, init_camera
+    from scnerf_tpu_torch.camera.model import get_extrinsics
+    from scnerf_tpu_torch.fields.nerfpp import NerfPPConfig, init_nerfpp_net
+    from scnerf_tpu_torch.render.nerfpp_renderer import NerfPPRenderConfig
+
+    model_cfg = NerfPPConfig()  # 8x256, skip (4,), max_freq_log2 10/4
+    render_cfg = NerfPPRenderConfig(cascade_samples=PP_CASCADE, chunk=PP_BATCH,
+                                    pdf_impl="pallas_vjp")
+    gen = torch.Generator().manual_seed(SEED + 3)
+    levels = [init_nerfpp_net(model_cfg, PP_IMAGES, generator=gen, device=dev)
+              for _ in PP_CASCADE]
+    rng = np.random.RandomState(3)
+    K = np.array([[PP_FOCAL, 0, PP_W / 2, 0], [0, PP_FOCAL, PP_H / 2, 0],
+                  [0, 0, 1, 0], [0, 0, 0, 1]])
+    axis = rng.randn(PP_IMAGES, 3)
+    axis /= np.linalg.norm(axis, axis=1, keepdims=True)
+    E = np.tile(np.eye(4), (PP_IMAGES, 1, 1))
+    E[:, :3, :3] = rodrigues(axis, rng.rand(PP_IMAGES) * 0.3)
+    E[:, :3, 3] = rng.randn(PP_IMAGES, 3) * 0.2
+    cfg = CameraConfig(H=PP_H, W=PP_W, convention=OPENCV, pixel_offset=0.5,
+                       multiplicative_noise=True)
+    camera = init_camera(K, E, cfg, device=dev)
+    # A camera as calibration leaves it: every learnable leaf non-zero (the
+    # intrinsics noise is relative here: 1% of each of fx, fy, cx, cy).
+    for name, scale in (("intrinsics_noise", 0.01), ("extrinsics_noise", 0.5),
+                        ("ray_o_grid", 1.0), ("ray_d_grid", 1.0)):
+        leaf = getattr(camera, name)
+        setattr(camera, name, (torch.randn(leaf.shape, generator=gen) * scale).to(dev))
+    centres = torch.linalg.vector_norm(get_extrinsics(camera)[:, :3, 3], dim=-1)
+    require(float(centres.max()) < 1.0, f"a camera lies outside the unit sphere: {centres}")
+    return model_cfg, render_cfg, levels, camera
+
+
+def phase_nerfpp_slice(dev, card, slice_):
+    from scnerf_tpu_torch.camera import pixels_to_rays, rays_full_image
+    from scnerf_tpu_torch.kernels import pdf_cuda
+    from scnerf_tpu_torch.render.nerfpp_renderer import render_rays_nerfpp
+    from scnerf_tpu_torch.serve import RenderService, fp32_inference, make_nerfpp_serve_fn
+
+    print("== phase 6: NeRF++ serving slice at full Truck width on the card")
+    model_cfg, render_cfg, levels, camera = slice_
+    service = RenderService(make_nerfpp_serve_fn(levels, model_cfg, render_cfg),
+                            PP_BATCH, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+
+    def random_pixels(n):
+        px = torch.randint(0, PP_W, (n,), generator=gen, device=dev)
+        py = torch.randint(0, PP_H, (n,), generator=gen, device=dev)
+        idx = torch.randint(0, PP_IMAGES, (n,), generator=gen, device=dev)
+        return pixels_to_rays(camera, px, py, image_idx=idx)
+
+    requests = {f"{n}_pixels": random_pixels(n) for n in PP_PIXEL_REQUESTS}
+    requests["full_image"] = rays_full_image(camera, image_idx=0)
+
+    def request(ray_o, ray_d):
+        return service(ray_o, ray_d, torch.full((ray_o.shape[0],), 1e-4, device=dev))
+
+    request(*next(iter(requests.values())))  # warm-up: cuBLAS handles, allocator
+    torch.cuda.synchronize()
+
+    pdf_cuda.launches = pdf_cuda.diff_launches = 0
+    outputs, rates = {}, {}
+    for name, (ray_o, ray_d) in requests.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outputs[name] = request(ray_o, ray_d)  # ends in a device->host copy
+        seconds = time.perf_counter() - t0
+        rates[name] = ray_o.shape[0] / seconds
+    launches = pdf_cuda.diff_launches
+    print(f"  K1 launches on the NeRF++ path: {pdf_cuda.launches}")
+
+    batches = 0
+    for name, (ray_o, _) in requests.items():
+        n = ray_o.shape[0]
+        batches += -(-n // PP_BATCH)
+        out = outputs[name]
+        require(out["rgb"].shape == (n, 3), f"{name}: rgb shape {out['rgb'].shape}")
+        for k in ("fg_depth", "bg_lambda"):
+            require(out[k].shape == (n,), f"{name}: {k} shape {out[k].shape}")
+        for k, v in out.items():
+            require(bool(np.isfinite(v).all()), f"{name}: {k} not finite")
+        # [0, 1] up to the 1e-6 per sample that TINY_NUMBER adds to each
+        # transmittance factor (192 fg samples: at most ~2e-4 above 1).
+        for k in ("rgb", "bg_lambda"):
+            require(out[k].min() >= 0.0 and out[k].max() <= 1.0 + 1e-3,
+                    f"{name}: {k} outside [0, 1]: {out[k].min()}, {out[k].max()}")
+        print(f"  {name}: {n} rays, {rates[name]:.1f} rays/s ({card}); "
+              f"rgb mean {out['rgb'].mean():.4f}, bg_lambda mean {out['bg_lambda'].mean():.4f}, "
+              f"fg_depth mean {out['fg_depth'].mean():.4f}")
+    print(f"  pdf_cuda.diff_launches={launches} over {batches} batches served")
+    require(launches >= 2 * batches, f"K2 launched {launches} times for {batches} batches")
+
+    # The deterministic u ends at 1.0; the NeRF++ search stops at cdf[B-2],
+    # so the guard meets it only where the last bin weighs under 1e-6.
+    ray_o, ray_d = (x[:PP_BATCH] for x in requests["full_image"])
+    with fp32_inference():
+        level0 = render_rays_nerfpp(
+            levels[:1], model_cfg, dataclasses.replace(render_cfg, perturb=False,
+                                                       cascade_samples=PP_CASCADE[:1]),
+            ray_o, ray_d, torch.full((PP_BATCH,), 1e-4, device=dev))[0]
+        for k in ("fg_weights", "bg_weights"):
+            w = level0[k][..., 1:-1] + 1e-6
+            share = float((w[..., -1] / w.sum(-1) < 1e-6).float().mean())
+            print(f"  share of rays whose last {k[:2]} bin weighs under 1e-6: {share:.4e}")
+    return requests, outputs, launches
+
+
+def phase_nerfpp_cpu_agreement(slice_, requests, outputs):
+    from scnerf_tpu_torch import bridge
+    from scnerf_tpu_torch.kernels import pdf_cuda
+    from scnerf_tpu_torch.serve import make_nerfpp_serve_fn
+
+    print("== phase 7: the card against the CPU port, NeRF++")
+    model_cfg, render_cfg, levels, _ = slice_
+    n = PP_CPU_RAYS
+    name = f"{PP_PIXEL_REQUESTS[-1]}_pixels"
+    ray_o, ray_d = (x[:n].cpu() for x in requests[name])
+    cpu_levels = bridge.tree_to_torch(bridge.tree_to_numpy(levels), device="cpu")
+    before = pdf_cuda.diff_launches
+    cpu_out = make_nerfpp_serve_fn(cpu_levels, model_cfg, render_cfg)(
+        ray_o, ray_d, torch.full((n,), 1e-4))
+    require(pdf_cuda.diff_launches == before, "the CPU run launched the CUDA kernel")
+    for k in ("rgb", "fg_depth", "bg_lambda"):
+        err = np.abs(cpu_out[k].numpy() - outputs[name][k][:n])
+        print(f"  {k} over {n} rays: median|err|={np.median(err):.3e} max|err|={err.max():.3e}")
+        if k == "rgb":
+            require(np.median(err) < 1e-5, f"card vs CPU rgb median error {np.median(err)}")
+            require(err.max() < 1e-3, f"card vs CPU rgb max error {err.max()}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on an NVIDIA card",
@@ -278,6 +524,12 @@ def main() -> int:
     slice_ = make_slice(dev)
     requests, outputs, launches = phase_slice(dev, card, slice_)
     phase_cpu_agreement(slice_, requests, outputs)
+    del slice_, requests, outputs
+
+    pp_record = phase_k2(dev)
+    pp_slice = make_nerfpp_slice(dev)
+    pp_requests, pp_outputs, pp_launches = phase_nerfpp_slice(dev, card, pp_slice)
+    phase_nerfpp_cpu_agreement(pp_slice, pp_requests, pp_outputs)
 
     print(json.dumps({"kernels": [{
         "name": "sample_pdf",
@@ -286,6 +538,13 @@ def main() -> int:
         "replaces": "scnerf_tpu/kernels/pdf_pallas.py:66",
         "launches": launches,
         **record,
+    }, {
+        "name": "sample_pdf_nerfpp",
+        "route": "cuda",
+        "source": "scnerf_tpu_torch/csrc/sample_pdf.cu",
+        "replaces": "scnerf_tpu/kernels/pdf_pallas.py:194",
+        "launches": pp_launches,
+        **pp_record,
     }]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

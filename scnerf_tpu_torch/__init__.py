@@ -1,4 +1,4 @@
-"""scnerf-tpu on PyTorch and CUDA: the NeRF serving path.
+"""scnerf-tpu on PyTorch and CUDA: the NeRF and NeRF++ serving paths.
 
 A port of ``scnerf_tpu`` (JAX) that runs on an NVIDIA Hopper card. Module
 paths mirror the JAX package, so ``scnerf_tpu/render/renderer.py`` has its

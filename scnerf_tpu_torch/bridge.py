@@ -4,8 +4,10 @@ The JAX side hands over its pytrees with numpy leaves (``jax.tree.map(
 np.asarray, tree)``), so this module imports neither ``jax`` nor
 ``scnerf_tpu``: it reads the JAX objects by attribute name.
 
-- MLP parameters: nested dicts/lists of ``{"w": (in, out), "b": (out,)}``.
-  The port keeps the JAX layout, so they copy as they are.
+- MLP parameters: nested dicts/lists of ``{"w": (in, out), "b": (out,)}``
+  (NeRF's ``{"coarse", "fine"}``, NeRF++'s ``{"levels": [{"fg", "bg",
+  "autoexpo"}, ...]}``). The port keeps the JAX layout, so they copy as
+  they are.
 - The camera: the leaves of ``scnerf_tpu.camera.model.Camera`` by name
   (:data:`CAMERA_LEAVES`), plus its config.
 - Configs: a port config is built from the fields of a JAX config with the
@@ -23,14 +25,17 @@ import torch
 from scnerf_tpu_torch.camera.model import CAMERA_LEAVES, Camera, CameraConfig
 
 # JAX config fields the port leaves out, with the only values whose results
-# the port reproduces. ``pdf_impl`` picks an implementation of the same
-# resampler (the device picks it here) and ``remat_chunk`` is a training
-# lever with identical values, so any value of those two is accepted.
+# the port reproduces (None: any value). ``pdf_impl`` picks an
+# implementation of the same resampler (the device picks it here; NeRF++'s
+# config keeps the name), ``remat_chunk`` is a training lever with identical
+# values, and ``fuse_fgbg`` runs the NeRF++ fg and bg nets as one batched
+# query, the same function up to float32 reassociation.
 _JAX_ONLY = {
     "compute_dtype": ("float32",),
     "remat_stash_bf16": (False,),
     "pdf_impl": None,
     "remat_chunk": None,
+    "fuse_fgbg": None,
 }
 
 

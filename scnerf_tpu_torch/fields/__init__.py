@@ -1,1 +1,1 @@
-"""Positional encoding and the NeRF MLP."""
+"""Positional encoding, the NeRF MLP and the NeRF++ fg/bg field."""

@@ -1,1 +1,1 @@
-"""NDC warp and the SO(3) helpers of the camera."""
+"""NDC warp, the SO(3) helpers of the camera, and NeRF++'s unit sphere."""

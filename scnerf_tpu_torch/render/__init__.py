@@ -1,1 +1,1 @@
-"""Compositing and the coarse-to-fine renderer."""
+"""Compositing, the coarse-to-fine NeRF renderer and the NeRF++ cascade."""

@@ -1,21 +1,42 @@
-"""Serving: a fixed-batch render function and a service that pads requests
-onto it.
+"""Serving: fixed-batch render functions and a service that pads requests
+onto them.
 
-Port of ``scnerf_tpu/serve.py``'s ``make_nerf_serve_fn`` and
-``RenderService``, for one device. The serve function bakes in the eval-path
-semantics: viewdirs from the world rays, the optional NDC warp with the
-learned focal (near/far then 0/1), eval-mode rendering (deterministic
-resampling, no jitter, no sigma noise) and the rgb clamp at 1.
+Port of ``scnerf_tpu/serve.py``'s ``make_nerf_serve_fn``,
+``make_nerfpp_serve_fn`` and ``RenderService``, for one device. The serve
+functions bake in the eval-path semantics: deterministic resampling and no
+jitter; for NeRF also viewdirs from the world rays, the optional NDC warp
+with the learned focal (near/far then 0/1), no sigma noise and the rgb clamp
+at 1. They run under ``inference_mode`` in full float32.
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 from typing import Callable, Sequence
 
 import numpy as np
 import torch
 
 from scnerf_tpu_torch.geometry.ndc import ndc_rays
+from scnerf_tpu_torch.render.nerfpp_renderer import render_rays_nerfpp
 from scnerf_tpu_torch.render.renderer import pad_edge, render_rays
+
+
+@contextlib.contextmanager
+def fp32_inference():
+    """Inference in full float32, as the JAX reference computes: TF32 off
+    for matmuls and cuDNN for the block, the caller's flags restored after
+    (TF32 keeps about three decimal digits)."""
+    matmul = torch.backends.cuda.matmul.allow_tf32
+    cudnn = torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        with torch.inference_mode():
+            yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = matmul
+        torch.backends.cudnn.allow_tf32 = cudnn
 
 
 def make_nerf_serve_fn(
@@ -38,11 +59,7 @@ def make_nerf_serve_fn(
     eval_cfg = render_cfg.eval_mode()
 
     def fn(rays_o, rays_d, near, far):
-        # Full float32 on the card, as the JAX reference computes: TF32 would
-        # keep about three decimal digits in the MLP's matmuls.
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-        with torch.inference_mode():
+        with fp32_inference():
             viewdirs = None
             if eval_cfg.use_viewdirs:
                 viewdirs = rays_d / (
@@ -56,6 +73,29 @@ def make_nerf_serve_fn(
                               near, far)
             out["rgb"] = torch.clamp(out["rgb"], max=1.0)
             return {k: out[k] for k in outputs}
+
+    return fn
+
+
+NERFPP_OUTPUTS = ("rgb", "fg_depth", "bg_lambda")
+
+
+def make_nerfpp_serve_fn(level_params: list, model_cfg, render_cfg) -> Callable:
+    """Build ``fn(ray_o, ray_d, min_depth) -> {maps}``: the last cascade
+    level's ``NERFPP_OUTPUTS``, as the JAX package's NeRF++ serve function
+    returns by default.
+
+    Args:
+      level_params: one ``{"fg", "bg"}`` param dict per cascade level, on
+        the device the rays will come on (closed over).
+    """
+    eval_cfg = dataclasses.replace(render_cfg, perturb=False)
+
+    def fn(ray_o, ray_d, min_depth):
+        with fp32_inference():
+            last = render_rays_nerfpp(level_params, model_cfg, eval_cfg, ray_o, ray_d,
+                                      min_depth)[-1]
+            return {k: last[k] for k in NERFPP_OUTPUTS}
 
     return fn
 

@@ -14,13 +14,19 @@ from scnerf_tpu.camera.model import CameraConfig as JCameraConfig  # noqa: E402
 from scnerf_tpu.camera.model import init_camera as j_init_camera  # noqa: E402
 from scnerf_tpu.fields.nerf import NeRFConfig as JNeRFConfig  # noqa: E402
 from scnerf_tpu.fields.nerf import init_nerf_mlp as j_init_nerf_mlp  # noqa: E402
+from scnerf_tpu.fields.nerfpp import NerfPPConfig as JNerfPPConfig  # noqa: E402
+from scnerf_tpu.fields.nerfpp import init_nerfpp_net as j_init_nerfpp_net  # noqa: E402
+from scnerf_tpu.render.nerfpp_renderer import NerfPPRenderConfig as JNerfPPRenderConfig  # noqa: E402
 from scnerf_tpu.render.renderer import RenderConfig as JRenderConfig  # noqa: E402
 from scnerf_tpu_torch import bridge  # noqa: E402
 from scnerf_tpu_torch.camera.model import CameraConfig  # noqa: E402
 from scnerf_tpu_torch.fields.nerf import NeRFConfig, init_nerf_mlp  # noqa: E402
+from scnerf_tpu_torch.fields.nerfpp import NerfPPConfig  # noqa: E402
+from scnerf_tpu_torch.render.nerfpp_renderer import NerfPPRenderConfig  # noqa: E402
 from scnerf_tpu_torch.render.renderer import RenderConfig  # noqa: E402
 
 SMALL = dict(depth=3, width=32, skips=(1,), multires=4, multires_views=2)
+SMALL_PP = dict(depth=3, width=32, skips=(1,), max_freq_log2=4, max_freq_log2_viewdirs=2)
 
 
 def _assert_trees_equal(a, b):
@@ -72,6 +78,20 @@ class TestMLP:
         for x, y in zip(jax.tree.leaves(got), jax.tree.leaves(want)):
             assert x.shape == y.shape  # w is (in, out) on both sides
 
+    def test_nerfpp_levels_with_autoexpo_round_trip_exact(self):
+        """The NeRF++ tree ``{"levels": [{fg, bg, autoexpo}, ...]}``."""
+        cfg = JNerfPPConfig(**SMALL_PP)
+        params = {"levels": [
+            j_init_nerfpp_net(jax.random.key(m), cfg, n_images=4, autoexpo=True)
+            for m in range(2)]}
+        params["levels"][1]["autoexpo"] = params["levels"][1]["autoexpo"] * 1.5 - 0.25
+        np_params = jax.tree.map(np.asarray, params)
+        port = bridge.tree_to_torch(np_params)
+        assert isinstance(port["levels"], list) and len(port["levels"]) == 2
+        assert port["levels"][0]["autoexpo"].shape == (4, 2)
+        assert port["levels"][1]["bg"]["base"][0]["w"].dtype == torch.float32
+        _assert_trees_equal(bridge.tree_to_numpy(port), np_params)
+
 
 class TestCamera:
     @pytest.mark.parametrize("cfg", [
@@ -96,6 +116,9 @@ class TestConfigs:
         (JNeRFConfig, NeRFConfig, SMALL),
         (JRenderConfig, RenderConfig, dict(n_samples=8, n_importance=4, near=0.5)),
         (JCameraConfig, CameraConfig, dict(H=7, W=9, convention="opencv")),
+        (JNerfPPConfig, NerfPPConfig, SMALL_PP),
+        (JNerfPPRenderConfig, NerfPPRenderConfig,
+         dict(cascade_samples=(64, 128), perturb=False, pdf_impl="pallas_vjp")),
     ])
     def test_round_trip(self, jax_cls, port_cls, kwargs):
         jcfg = jax_cls(**kwargs)
@@ -111,6 +134,21 @@ class TestConfigs:
         with pytest.raises(ValueError, match="does not support"):
             bridge.convert_config(jcfg, port_cls)
 
+    def test_nerfpp_refuses_bf16(self):
+        with pytest.raises(ValueError, match="does not support"):
+            bridge.convert_config(JNerfPPConfig(compute_dtype="bfloat16"), NerfPPConfig)
+
     def test_accepts_jax_only_levers_that_keep_values(self):
         jcfg = JRenderConfig(pdf_impl="pallas", remat_chunk=0)
         assert bridge.convert_config(jcfg, RenderConfig) == RenderConfig()
+
+    @pytest.mark.parametrize("fuse_fgbg", [False, True])
+    def test_nerfpp_accepts_fuse_fgbg_and_remat(self, fuse_fgbg):
+        """``fuse_fgbg`` is the same function up to float32 reassociation and
+        ``remat_chunk`` a training lever: any value converts."""
+        port = bridge.convert_config(JNerfPPConfig(fuse_fgbg=fuse_fgbg), NerfPPConfig)
+        assert port == NerfPPConfig()
+        jr = JNerfPPRenderConfig(cascade_samples=(64, 128), remat_chunk=0,
+                                 pdf_impl="pallas_stopgrad")
+        assert bridge.convert_config(jr, NerfPPRenderConfig) == NerfPPRenderConfig(
+            cascade_samples=(64, 128), pdf_impl="pallas_stopgrad")
