@@ -43,16 +43,35 @@ the JAX package. Phases, each of which exits non-zero when it fails:
    (the deterministic u = 1.0 then meets the denominator guard).
 7. The card against the CPU port for NeRF++: 512 of those rays: rgb median
    |err| < 1e-5 and max < 1e-3.
+8. K4, the row-wise searchsorted CUDA kernel, on its own path (no render
+   path calls it): the resamplers' shapes (8192 rows of 63 with 64 queries,
+   4096 of 63 with 128), ragged shapes, and rows with repeated values and
+   queries equal to row entries, both sides. The indices must equal the
+   twin's exactly. Time per call of K4, of the twin and of
+   ``torch.searchsorted`` (the one PyTorch call that computes the same
+   function).
+9. K3, the fused encoding + NeRF MLP CUDA kernel, on its own path, at the
+   points the NeRF serving path queries: the coarse (8192, 64) and fine
+   (8192, 128) points and view directions of one 8192-ray batch of phase 3,
+   recorded as the renderer hands them to ``query_field``, with phase 3's
+   coarse and fine weights, and a ragged (1027, 33) cut of the fine points.
+   Median |err| < 1e-5 and max < 2e-4 against the twin and against the raw
+   output the serving path computed, both in full float32. Time per call of
+   K3, the twin and ``query_field``.
 
-Each serving path runs with both kernels' launch counts set to 0 just
-before it and read just after. The line before the last is one JSON object
-with the kernels' numbers; the last line is ``{"ok": true, "device":
-{...}}``.
+Each serving path, and each of K3's and K4's own paths, runs with the
+kernels' launch counts set to 0 just before it and read just after. The
+line before the last is one JSON object with the kernels' numbers, each with
+the least time the card could take for its work (``bound_ms``: bytes over
+3.35 TB/s or float32 operations over 67 TFLOP/s, the larger); the last line
+is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -82,6 +101,43 @@ PP_SHAPES = ((PP_BATCH, 63, 128), (PP_BATCH, 62, 128), (PP_BATCH, 64, 128))
 PP_RAGGED = ((1, 2, 1), (5, 17, 33), (1027, 63, 100))
 PP_PIXEL_REQUESTS = (1000, 65536)
 PP_CPU_RAYS = 512
+
+SOURCES = ("sample_pdf", "searchsorted", "fused_mlp")
+# K4: the resamplers' (rows, CDF entries, queries), ragged shapes, ties.
+SEARCH_SHAPES = ((BATCH, 63, 64), (PP_BATCH, 63, 128))
+SEARCH_RAGGED = ((1, 1, 1), (5, 17, 33), (1027, 200, 100))
+K3_RAGGED = (1027, 33)
+K3_TIMING_CALLS = 3  # a fine-shape call takes tens of milliseconds
+
+# H100 SXM, NVIDIA's data sheet: HBM bytes/s and float32 FLOP/s outside the
+# tensor cores, at the 700 W limit.
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOP_PER_S = 67e12
+
+
+def bound(n_bytes: float, n_ops: float) -> dict:
+    """The least time the card could take: each input read and each output
+    written once at the HBM rate, or the operations at the float32 rate,
+    whichever is longer."""
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = n_ops / FP32_FLOP_PER_S * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def reset_launches() -> None:
+    """Every kernel's launch count to 0."""
+    from scnerf_tpu_torch.kernels import mlp_cuda, pdf_cuda, searchsorted_cuda
+
+    pdf_cuda.launches = pdf_cuda.diff_launches = 0
+    mlp_cuda.launches = searchsorted_cuda.launches = 0
+
+
+def launch_counts() -> dict:
+    from scnerf_tpu_torch.kernels import mlp_cuda, pdf_cuda, searchsorted_cuda
+
+    return {"K1": pdf_cuda.launches, "K2": pdf_cuda.diff_launches,
+            "K3": mlp_cuda.launches, "K4": searchsorted_cuda.launches}
 
 
 def require(ok: bool, what: str) -> None:
@@ -157,7 +213,12 @@ def phase_kernels(dev):
             require(flips < 1e-3, f"K1 boundary-flip share {flips} at {(n, b, s, det)}")
             require(lo and hi, f"K1 output outside the bins at {(n, b, s, det)}")
             if (b, det) == (63, True):  # the serving path's shape
-                record = dict(max_abs_err=float(err.max()), ms=ms, plain_ms=plain_ms)
+                # Reads bins, weights and u, writes the depths; per sample a
+                # count over the B CDF entries and a lerp.
+                record = dict(max_abs_err=float(err.max()), ms=ms, plain_ms=plain_ms,
+                              **bound(4 * (n * b + n * (b - 1) + 2 * n * s),
+                                      n * s * (b + 6) + 3 * n * (b - 1)),
+                              library_ms=None)
     return record
 
 
@@ -224,7 +285,7 @@ def phase_slice(dev, card, slice_):
     request(*requests["1000_pixels"])  # warm-up: cuBLAS handles, allocator
     torch.cuda.synchronize()
 
-    pdf_cuda.launches = pdf_cuda.diff_launches = 0
+    reset_launches()
     outputs, rates = {}, {}
     for name, (rays_o, rays_d) in requests.items():
         torch.cuda.synchronize()
@@ -232,8 +293,9 @@ def phase_slice(dev, card, slice_):
         outputs[name] = request(rays_o, rays_d)  # ends in a device->host copy
         seconds = time.perf_counter() - t0
         rates[name] = rays_o.shape[0] / seconds
-    launches = pdf_cuda.launches
-    print(f"  K2 launches on the NeRF path: {pdf_cuda.diff_launches}")
+    counts = launch_counts()
+    launches = counts["K1"]
+    print(f"  launches on the NeRF path: {counts}")
 
     chunks = 0
     for name, (rays_o, _) in requests.items():
@@ -356,7 +418,11 @@ def phase_k2(dev):
                   f"max|err|={mx:.3e} share>1e-4={flips:.2e} grads off: {', '.join(off)}; "
                   f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f}")
             if (b, det) == (63, True):  # the serving path's shape
-                record = dict(max_abs_err=mx, ms=ms, plain_ms=plain_ms)
+                # As K1, and the int32 search counts written besides.
+                record = dict(max_abs_err=mx, ms=ms, plain_ms=plain_ms,
+                              **bound(4 * (n * b + n * (b - 1) + 3 * n * s),
+                                      n * s * (b + 6) + 3 * n * (b - 1)),
+                              library_ms=None)
     for n, b, s in PP_RAGGED:
         bins, weights = resample_inputs(rng, n, b, dev)
         u = pdf_uniforms(gen, n, s, False, device=dev)
@@ -428,7 +494,7 @@ def phase_nerfpp_slice(dev, card, slice_):
     request(*next(iter(requests.values())))  # warm-up: cuBLAS handles, allocator
     torch.cuda.synchronize()
 
-    pdf_cuda.launches = pdf_cuda.diff_launches = 0
+    reset_launches()
     outputs, rates = {}, {}
     for name, (ray_o, ray_d) in requests.items():
         torch.cuda.synchronize()
@@ -436,8 +502,9 @@ def phase_nerfpp_slice(dev, card, slice_):
         outputs[name] = request(ray_o, ray_d)  # ends in a device->host copy
         seconds = time.perf_counter() - t0
         rates[name] = ray_o.shape[0] / seconds
-    launches = pdf_cuda.diff_launches
-    print(f"  K1 launches on the NeRF++ path: {pdf_cuda.launches}")
+    counts = launch_counts()
+    launches = counts["K2"]
+    print(f"  launches on the NeRF++ path: {counts}")
 
     batches = 0
     for name, (ray_o, _) in requests.items():
@@ -498,6 +565,162 @@ def phase_nerfpp_cpu_agreement(slice_, requests, outputs):
             require(err.max() < 1e-3, f"card vs CPU rgb max error {err.max()}")
 
 
+def sorted_rows(rng, rows, n, m, dev, *, ties=False):
+    """Sorted rows in [0, 1] and queries; with ``ties``, runs of repeated
+    values and queries equal to row entries half of the time."""
+    a = rng.random((rows, n))
+    if ties:
+        a = np.round(a * 8) / 8
+    a = np.sort(a, axis=-1).astype(np.float32)
+    v = rng.random((rows, m)).astype(np.float32)
+    if ties:
+        picks = np.take_along_axis(a, rng.integers(0, n, (rows, m)), -1)
+        v = np.where(rng.random((rows, m)) < 0.5, picks, v).astype(np.float32)
+    return torch.from_numpy(a).to(dev), torch.from_numpy(v).to(dev)
+
+
+def phase_k4(dev):
+    from scnerf_tpu_torch.kernels import searchsorted_cuda
+    from scnerf_tpu_torch.sampling.searchsorted import searchsorted
+
+    print("== phase 8: K4 searchsorted kernel against its plain twin on the card")
+    rng = np.random.default_rng(SEED + 5)
+    cases = [((rows, n, m), False, *sorted_rows(rng, rows, n, m, dev))
+             for rows, n, m in SEARCH_SHAPES + SEARCH_RAGGED]
+    cases += [((rows, n, m), True, *sorted_rows(rng, rows, n, m, dev, ties=True))
+              for rows, n, m in SEARCH_SHAPES]
+
+    reset_launches()
+    outs = [(shape, ties, a, v, side, searchsorted_cuda.searchsorted_cuda(a, v, side))
+            for shape, ties, a, v in cases for side in ("left", "right")]
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    launches = counts["K4"]
+    print(f"  launches on K4's path: {counts}")
+    require(launches == len(outs), f"K4 launched {launches} times for {len(outs)} calls")
+
+    errs = {}
+    for shape, ties, a, v, side, got in outs:
+        want = searchsorted(a, v, side)
+        err = int((got.long() - want.long()).abs().max()) if got.numel() else 0
+        errs[shape] = max(errs.get(shape, 0), err)
+        print(f"  a ({shape[0]},{shape[1]}) v ({shape[0]},{shape[2]}) ties={ties} side={side}: "
+              f"max|index err|={err}")
+        require(got.dtype == torch.int32 and torch.equal(got, want),
+                f"K4 at {shape} ties={ties} side={side}: indices differ from the twin's")
+
+    record = None
+    for shape, ties, a, v in cases[:len(SEARCH_SHAPES)]:
+        rows, n, m = shape
+        # The resamplers count u >= cdf: the right side.
+        ms = per_call_ms(lambda: searchsorted_cuda.searchsorted_cuda(a, v, "right"))
+        plain_ms = per_call_ms(lambda: searchsorted(a, v, "right"))
+        library_ms = per_call_ms(lambda: torch.searchsorted(a, v, side="right", out_int32=True))
+        # Reads a and v, writes the indices; a binary search per query.
+        bnd = bound(4 * (rows * n + 2 * rows * m), rows * m * math.ceil(math.log2(n + 1)))
+        print(f"  a ({rows},{n}) v ({rows},{m}) right: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+              f"torch.searchsorted_ms={library_ms:.4f} bound_ms={bnd['bound_ms']:.6f}")
+        if record is None:  # the NeRF resampler's shape
+            record = dict(max_abs_err=float(errs[shape]), ms=ms, plain_ms=plain_ms, **bnd,
+                          library_ms=library_ms)
+    return record, launches
+
+
+def record_field_queries(dev, slice_, requests):
+    """The coarse and fine field queries of one 8192-ray batch of phase 3's
+    65,536-pixel request, as ``render_rays`` hands them to ``query_field``,
+    each with the raw output the serving path computed."""
+    from scnerf_tpu_torch.render import renderer
+    from scnerf_tpu_torch.serve import make_nerf_serve_fn
+
+    model_cfg, render_cfg, params, _, ndc = slice_
+    rays_o, rays_d = (x[:BATCH] for x in requests["65536_pixels"])
+    queries = []
+    query_field = renderer.query_field
+
+    def recording(p, cfg, pts, viewdirs=None):
+        raw = query_field(p, cfg, pts, viewdirs)
+        queries.append(dict(params=p, pts=pts, viewdirs=viewdirs, raw=raw))
+        return raw
+
+    renderer.query_field = recording
+    try:
+        make_nerf_serve_fn(params, model_cfg, render_cfg, ndc=ndc)(
+            rays_o, rays_d, torch.zeros(BATCH, device=dev), torch.ones(BATCH, device=dev))
+    finally:
+        renderer.query_field = query_field
+    shapes = [tuple(q["pts"].shape) for q in queries]
+    require(shapes == [(BATCH, 64, 3), (BATCH, 128, 3)], f"recorded field queries {shapes}")
+    return queries
+
+
+def phase_k3(model_cfg, queries):
+    from scnerf_tpu_torch.fields.nerf import query_field
+    from scnerf_tpu_torch.kernels import mlp_cuda
+    from scnerf_tpu_torch.serve import fp32_inference
+
+    print("== phase 9: K3 fused encoding + NeRF MLP kernel at the NeRF serving path's points")
+    coarse, fine = queries
+    n, s = K3_RAGGED
+    cases = {"coarse": coarse, "fine": fine, "ragged": dict(
+        params=fine["params"], pts=fine["pts"][:n, :s].contiguous(),
+        viewdirs=fine["viewdirs"][:n].contiguous(), raw=fine["raw"][:n, :s])}
+
+    reset_launches()
+    with fp32_inference():
+        outs = {name: mlp_cuda.fused_query_field(q["params"], model_cfg, q["pts"], q["viewdirs"])
+                for name, q in cases.items()}
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    launches = counts["K3"]
+    print(f"  launches on K3's path: {counts}")
+    require(launches == len(cases), f"K3 launched {launches} times for {len(cases)} calls")
+
+    record = None
+    for name, q in cases.items():
+        args = (q["params"], model_cfg, q["pts"], q["viewdirs"])
+        got = outs[name]
+        require(got.shape == (*q["pts"].shape[:2], 4) and bool(torch.isfinite(got).all()),
+                f"K3 {name}: shape {tuple(got.shape)} or values not finite")
+        with fp32_inference():
+            twin = mlp_cuda.fused_query_field_plain(*args)
+        errs = {}
+        for ref_name, ref in (("twin", twin), ("query_field", q["raw"])):
+            err = (got - ref).abs()
+            med, mx = float(err.median()), float(err.max())
+            errs[ref_name] = (med, mx)
+            print(f"  {name} pts {tuple(q['pts'].shape)} vs {ref_name}: median|err|={med:.3e} "
+                  f"max|err|={mx:.3e}")
+            require(med < 1e-5 and mx < 2e-4, f"K3 {name} vs {ref_name}: median {med}, max {mx}")
+        if name == "ragged":
+            continue
+
+        def timed(fn):
+            with fp32_inference():
+                return per_call_ms(lambda: fn(*args), calls=K3_TIMING_CALLS, repeats=3)
+
+        ms = timed(mlp_cuda.fused_query_field)
+        plain_ms = timed(mlp_cuda.fused_query_field_plain)
+        query_field_ms = timed(query_field)
+        weights = [x for layer in [*q["params"]["pts"], *(q["params"][h] for h in mlp_cuda.HEADS)]
+                   for x in (layer["w"], layer["b"])]
+        macs = sum(layer.numel() for layer in weights[::2])  # per point
+        points = q["pts"].shape[0] * q["pts"].shape[1]
+        # Reads the points, view directions and weights once, writes the
+        # raw outputs; 2 FLOP per multiply-add (the sin/cos are not counted).
+        bnd = bound(4 * (q["pts"].numel() + q["viewdirs"].numel()
+                         + sum(x.numel() for x in weights) + got.numel()), 2 * macs * points)
+        print(f"  {name}: {macs} MAC/point; kernel_ms={ms:.3f} plain_ms={plain_ms:.3f} "
+              f"query_field_ms={query_field_ms:.3f} bound_ms={bnd['bound_ms']:.3f} "
+              f"({bnd['bound_by']}); kernel {2 * macs * points / ms / 1e9:.2f} TFLOP/s")
+        if name == "fine":
+            record = dict(max_abs_err=errs["twin"][1], median_abs_err=errs["twin"][0],
+                          max_abs_err_query_field=errs["query_field"][1], ms=ms,
+                          plain_ms=plain_ms, query_field_ms=query_field_ms, **bnd,
+                          library_ms=None)
+    return record, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on an NVIDIA card",
@@ -513,23 +736,32 @@ def main() -> int:
     print(f"  python {sys.version.split()[0]}, torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    lib = _build.build("sample_pdf")
-    _build.load("sample_pdf")
-    print(f"  built {lib.name} in {time.perf_counter() - t0:.2f} s")
-    log = _build.BUILD_DIR / "sample_pdf.log"
-    if log.exists():
-        print("  " + log.read_text().strip().replace("\n", "\n  "))
+    with concurrent.futures.ThreadPoolExecutor(len(SOURCES)) as pool:  # one nvcc each
+        libs = list(pool.map(_build.build, SOURCES))
+    for name in SOURCES:
+        _build.load(name)
+    print(f"  built {', '.join(lib.name for lib in libs)} in {time.perf_counter() - t0:.2f} s")
+    for name in SOURCES:
+        log = _build.BUILD_DIR / f"{name}.log"
+        if log.exists():
+            print("  " + log.read_text().strip().replace("\n", "\n  "))
 
     record = phase_kernels(dev)
     slice_ = make_slice(dev)
     requests, outputs, launches = phase_slice(dev, card, slice_)
     phase_cpu_agreement(slice_, requests, outputs)
+    queries = record_field_queries(dev, slice_, requests)
+    model_cfg = slice_[0]
     del slice_, requests, outputs
 
     pp_record = phase_k2(dev)
     pp_slice = make_nerfpp_slice(dev)
     pp_requests, pp_outputs, pp_launches = phase_nerfpp_slice(dev, card, pp_slice)
     phase_nerfpp_cpu_agreement(pp_slice, pp_requests, pp_outputs)
+    del pp_slice, pp_requests, pp_outputs
+
+    search_record, search_launches = phase_k4(dev)
+    field_record, field_launches = phase_k3(model_cfg, queries)
 
     print(json.dumps({"kernels": [{
         "name": "sample_pdf",
@@ -545,6 +777,20 @@ def main() -> int:
         "replaces": "scnerf_tpu/kernels/pdf_pallas.py:194",
         "launches": pp_launches,
         **pp_record,
+    }, {
+        "name": "searchsorted",
+        "route": "cuda",
+        "source": "scnerf_tpu_torch/csrc/searchsorted.cu",
+        "replaces": "scnerf_tpu/kernels/searchsorted_pallas.py:35",
+        "launches": search_launches,
+        **search_record,
+    }, {
+        "name": "fused_query_field",
+        "route": "cuda",
+        "source": "scnerf_tpu_torch/csrc/fused_mlp.cu",
+        "replaces": "scnerf_tpu/kernels/mlp_pallas.py:85",
+        "launches": field_launches,
+        **field_record,
     }]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -39,7 +39,7 @@ _JAX_ONLY = {
 }
 
 
-def tree_to_torch(tree: Any, *, device: torch.device | str = "cpu") -> Any:
+def tree_to_torch(tree: Any, *, device: torch.device | str = "cuda") -> Any:
     """Nested dicts/lists/tuples of numpy arrays -> the same of tensors."""
     if isinstance(tree, dict):
         return {k: tree_to_torch(v, device=device) for k, v in tree.items()}
@@ -88,7 +88,7 @@ def config_to_dict(cfg: Any) -> dict:
     return {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
 
 
-def camera_from_numpy(camera: Any, *, device: torch.device | str = "cpu") -> Camera:
+def camera_from_numpy(camera: Any, *, device: torch.device | str = "cuda") -> Camera:
     """A JAX ``Camera`` with numpy leaves (or a dict of the leaves and
     ``"config"``) -> the port's :class:`Camera`."""
     get = camera.__getitem__ if isinstance(camera, dict) else (

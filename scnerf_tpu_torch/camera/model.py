@@ -83,7 +83,7 @@ def init_camera(
     config: CameraConfig,
     k: np.ndarray | None = None,
     *,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
     dtype: torch.dtype = torch.float32,
 ) -> Camera:
     """Build a :class:`Camera` from initial K (3x3/4x4) and c2w poses (N,4,4).

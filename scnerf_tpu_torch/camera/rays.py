@@ -96,7 +96,7 @@ def pixels_to_rays(
     return rays_o, rays_d
 
 
-def full_image_pixels(H: int, W: int, *, device: torch.device | str = "cpu"):
+def full_image_pixels(H: int, W: int, *, device: torch.device | str = "cuda"):
     """Row-major pixel grid as flat ``(px, py)``, matching ``reshape(-1)``."""
     py, px = torch.meshgrid(
         torch.arange(H, dtype=torch.float32, device=device),

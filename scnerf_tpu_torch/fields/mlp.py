@@ -14,7 +14,7 @@ import torch
 
 def init_dense(in_dim: int, out_dim: int, activation: str = "relu", *,
                generator: torch.Generator | None = None,
-               device: torch.device | str = "cpu",
+               device: torch.device | str = "cuda",
                dtype: torch.dtype = torch.float32) -> dict:
     """Draws on the CPU from ``generator`` (a CPU generator), so a seed gives
     the same weights whatever ``device`` they are then moved to."""

@@ -41,7 +41,7 @@ class NeRFConfig:
 
 
 def init_nerf_mlp(cfg: NeRFConfig, *, generator: torch.Generator | None = None,
-                  device: torch.device | str = "cpu") -> dict:
+                  device: torch.device | str = "cuda") -> dict:
     """Parameter dict for one NeRF MLP, with the JAX package's structure:
     ``{"pts": [dense]*depth, "feature", "alpha", "views", "rgb"}`` (or
     ``"output"`` without viewdirs)."""

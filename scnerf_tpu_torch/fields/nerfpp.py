@@ -46,7 +46,7 @@ class NerfPPConfig:
 
 def init_mlpnet(cfg: NerfPPConfig, input_dim: int, *,
                 generator: torch.Generator | None = None,
-                device: torch.device | str = "cpu") -> dict:
+                device: torch.device | str = "cuda") -> dict:
     """One MLPNet (fg or bg, by ``input_dim`` 3 or 4), with the JAX
     package's structure: ``{"base": [dense]*depth, "sigma", "remap",
     "rgb0", "rgb1"}``."""
@@ -100,7 +100,7 @@ def query_mlpnet(params: dict, cfg: NerfPPConfig, pts: torch.Tensor,
 
 def init_nerfpp_net(cfg: NerfPPConfig, n_images: int = 0, autoexpo: bool = False, *,
                     generator: torch.Generator | None = None,
-                    device: torch.device | str = "cpu") -> dict:
+                    device: torch.device | str = "cuda") -> dict:
     """``{"fg", "bg"}`` MLPNets (+ ``"autoexpo"`` ``(n_images, 2)`` rows of
     ``(0.5, 0)``)."""
     params = {

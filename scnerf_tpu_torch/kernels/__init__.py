@@ -4,4 +4,6 @@
 | --- | --- | --- | --- |
 | K1 inverse-CDF | ``pdf_cuda.sample_pdf_core`` | ``csrc/sample_pdf.cu`` | ``scnerf_tpu/kernels/pdf_pallas.py:sample_pdf_pallas_core`` |
 | K2 inverse-CDF with counts | ``pdf_cuda.sample_pdf_fwd`` (under ``sample_pdf_diff``) | ``csrc/sample_pdf.cu`` | ``scnerf_tpu/kernels/pdf_pallas.py:_pallas_fwd`` |
+| K3 encoding + NeRF MLP | ``mlp_cuda.fused_query_field`` | ``csrc/fused_mlp.cu`` | ``scnerf_tpu/kernels/mlp_pallas.py:fused_query_field`` |
+| K4 row-wise searchsorted | ``searchsorted_cuda.searchsorted_cuda`` | ``csrc/searchsorted.cu`` | ``scnerf_tpu/kernels/searchsorted_pallas.py:searchsorted_pallas`` |
 """

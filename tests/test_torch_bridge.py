@@ -10,6 +10,7 @@ jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 import torch  # noqa: E402
 
+from _torch_support import hang_watchdog  # noqa: E402,F401
 from scnerf_tpu.camera.model import CameraConfig as JCameraConfig  # noqa: E402
 from scnerf_tpu.camera.model import init_camera as j_init_camera  # noqa: E402
 from scnerf_tpu.fields.nerf import NeRFConfig as JNeRFConfig  # noqa: E402
@@ -64,7 +65,7 @@ class TestMLP:
             "fine": j_init_nerf_mlp(jax.random.key(1), cfg),
         }
         np_params = jax.tree.map(np.asarray, params)
-        port = bridge.tree_to_torch(np_params)
+        port = bridge.tree_to_torch(np_params, device="cpu")
         assert port["coarse"]["pts"][0]["w"].dtype == torch.float32
         _assert_trees_equal(bridge.tree_to_numpy(port), np_params)
 
@@ -73,7 +74,7 @@ class TestMLP:
         want = jax.tree.map(np.asarray, j_init_nerf_mlp(jax.random.key(0), cfg))
         got = bridge.tree_to_numpy(init_nerf_mlp(
             bridge.convert_config(cfg, NeRFConfig),
-            generator=torch.Generator().manual_seed(0)))
+            generator=torch.Generator().manual_seed(0), device="cpu"))
         assert jax.tree.structure(got) == jax.tree.structure(want)
         for x, y in zip(jax.tree.leaves(got), jax.tree.leaves(want)):
             assert x.shape == y.shape  # w is (in, out) on both sides
@@ -86,7 +87,7 @@ class TestMLP:
             for m in range(2)]}
         params["levels"][1]["autoexpo"] = params["levels"][1]["autoexpo"] * 1.5 - 0.25
         np_params = jax.tree.map(np.asarray, params)
-        port = bridge.tree_to_torch(np_params)
+        port = bridge.tree_to_torch(np_params, device="cpu")
         assert isinstance(port["levels"], list) and len(port["levels"]) == 2
         assert port["levels"][0]["autoexpo"].shape == (4, 2)
         assert port["levels"][1]["bg"]["base"][0]["w"].dtype == torch.float32
@@ -100,7 +101,7 @@ class TestCamera:
     ])
     def test_round_trip_exact(self, cfg):
         cam = jax.tree.map(np.asarray, _jax_camera(**cfg))
-        port = bridge.camera_from_numpy(cam)
+        port = bridge.camera_from_numpy(cam, device="cpu")
         assert dataclasses.asdict(port.config) == dataclasses.asdict(
             bridge.convert_config(cam.config, CameraConfig))
         back = bridge.camera_to_numpy(port)

@@ -11,6 +11,7 @@ jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 import torch  # noqa: E402
 
+from _torch_support import hang_watchdog  # noqa: E402,F401
 from scnerf_tpu.camera import model as jmodel  # noqa: E402
 from scnerf_tpu.camera import rays as jrays  # noqa: E402
 from scnerf_tpu.geometry import ndc as jndc  # noqa: E402
@@ -61,7 +62,7 @@ def _cameras(seed, n_images=4, **cfg):
         ray_d_grid=rng.normal(size=cam.ray_d_grid.shape) * 10,
     )
     cam = cam.replace(**{k: jnp.asarray(v, jnp.float32) for k, v in noise.items()})
-    return cam, bridge.camera_from_numpy(jax.tree.map(np.asarray, cam))
+    return cam, bridge.camera_from_numpy(jax.tree.map(np.asarray, cam), device="cpu")
 
 
 class TestSO3:
@@ -148,7 +149,7 @@ class TestPixelsToRays:
 
     def test_full_image_pixels_order(self):
         px_j, py_j = jrays.full_image_pixels(H, W)
-        px_t, py_t = trays.full_image_pixels(H, W)
+        px_t, py_t = trays.full_image_pixels(H, W, device="cpu")
         np.testing.assert_array_equal(px_t.numpy(), np.asarray(px_j))
         np.testing.assert_array_equal(py_t.numpy(), np.asarray(py_j))
 

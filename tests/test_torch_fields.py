@@ -9,6 +9,7 @@ jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 import torch  # noqa: E402
 
+from _torch_support import hang_watchdog  # noqa: E402,F401
 from scnerf_tpu.fields import encoding as jenc  # noqa: E402
 from scnerf_tpu.fields import nerf as jnerf  # noqa: E402
 from scnerf_tpu_torch import bridge  # noqa: E402
@@ -65,7 +66,7 @@ class TestQueryField:
         vd = rng.normal(size=(16, 3)).astype(np.float32)
         vd /= np.linalg.norm(vd, axis=-1, keepdims=True)
         want = jnerf.query_field(params, jcfg, jnp.asarray(pts), jnp.asarray(vd))
-        got = tnerf.query_field(bridge.tree_to_torch(params), tcfg, _t(pts), _t(vd))
+        got = tnerf.query_field(bridge.tree_to_torch(params, device="cpu"), tcfg, _t(pts), _t(vd))
         assert got.shape == want.shape == (16, 9, 4)
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
 
@@ -78,7 +79,7 @@ class TestQueryField:
         pts = rng.normal(size=(8, 16, 3)).astype(np.float32)
         vd = rng.normal(size=(8, 3)).astype(np.float32)
         want = jnerf.query_field_chunked(params, jcfg, jnp.asarray(pts), jnp.asarray(vd), 4)
-        got = tnerf.query_field(bridge.tree_to_torch(params),
+        got = tnerf.query_field(bridge.tree_to_torch(params, device="cpu"),
                                 bridge.convert_config(jcfg, tnerf.NeRFConfig),
                                 _t(pts), _t(vd))
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
@@ -86,10 +87,10 @@ class TestQueryField:
     def test_init_statistics(self):
         """Xavier-uniform bounds with the activation gain, zero bias."""
         cfg = tnerf.NeRFConfig(**SMALL)
-        p = tnerf.init_nerf_mlp(cfg, generator=torch.Generator().manual_seed(0))
+        p = tnerf.init_nerf_mlp(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
         w = p["pts"][1]["w"]
         limit = np.sqrt(2.0) * np.sqrt(6.0 / (32 + 32))
         assert float(w.abs().max()) <= limit and float(w.abs().max()) > 0.9 * limit
         assert float(p["rgb"]["b"].abs().max()) == 0.0
-        q = tnerf.init_nerf_mlp(cfg, generator=torch.Generator().manual_seed(0))
+        q = tnerf.init_nerf_mlp(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
         torch.testing.assert_close(p["views"]["w"], q["views"]["w"], rtol=0, atol=0)

@@ -1,4 +1,5 @@
-"""The K1 and K2 wrappers (``scnerf_tpu_torch/kernels/pdf_cuda.py``) and
+"""The kernel wrappers (``scnerf_tpu_torch/kernels/``: K1 and K2 in
+``pdf_cuda.py``, K3 in ``mlp_cuda.py``, K4 in ``searchsorted_cuda.py``) and
 their build.
 
 On the CPU the wrappers take the plain twin and launch nothing. The tests
@@ -6,6 +7,7 @@ marked ``cuda`` hold the CUDA kernels against the twin on the card, values
 and K2's gradients; they skip without one. This file needs no JAX, so the card's machine runs it with
 ``python -m pytest --noconftest tests/test_torch_kernels.py``.
 """
+import inspect
 import subprocess
 import sys
 from pathlib import Path
@@ -14,8 +16,15 @@ import numpy as np
 import pytest
 import torch
 
-from scnerf_tpu_torch.kernels import _build, pdf_cuda
+from _torch_support import hang_watchdog  # noqa: F401
+from scnerf_tpu_torch import bridge
+from scnerf_tpu_torch.camera import model as camera_model
+from scnerf_tpu_torch.camera import rays
+from scnerf_tpu_torch.fields import mlp, nerf, nerfpp
+from scnerf_tpu_torch.kernels import _build, mlp_cuda, pdf_cuda, searchsorted_cuda
 from scnerf_tpu_torch.sampling.pdf import inverse_cdf, pdf_uniforms, sample_pdf
+from scnerf_tpu_torch.sampling.searchsorted import searchsorted
+from scnerf_tpu_torch.serve import fp32_inference
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -150,17 +159,145 @@ class TestBuild:
         assert "build/" in (REPO / ".gitignore").read_text().split()
         assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
 
+    @pytest.mark.parametrize("name", ["searchsorted", "fused_mlp"])
+    def test_new_sources_named_alike(self, name):
+        """K4's and K3's sources build the same way, with no fast math (the
+        encoding needs precise sinf/cosf)."""
+        lib = _build.library_path(name)
+        assert lib.parent == REPO / "build" / "kernels"
+        assert lib.name.startswith(f"lib{name}_") and lib.suffix == ".so"
+        assert not any("fast" in flag for flag in _build.NVCC_FLAGS)
+
+
+# The port's entry points run on the card unless the caller asks for the CPU.
+ENTRY_POINTS = [camera_model.init_camera, nerf.init_nerf_mlp, nerfpp.init_mlpnet,
+                nerfpp.init_nerfpp_net, mlp.init_dense, bridge.tree_to_torch,
+                bridge.camera_from_numpy, rays.full_image_pixels]
+
+
+@pytest.mark.parametrize("fn", ENTRY_POINTS, ids=lambda fn: fn.__name__)
+def test_entry_points_default_to_the_card(fn):
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+def _sorted_rows(rows, n, m, *, seed=0, ties=False, device="cpu"):
+    """Sorted rows and queries; with ``ties``, runs of repeated values and
+    queries equal to row entries half of the time."""
+    rng = np.random.default_rng(seed)
+    a = rng.random((rows, n))
+    if ties:
+        a = np.round(a * 8) / 8
+    a = np.sort(a, axis=-1).astype(np.float32)
+    v = rng.random((rows, m)).astype(np.float32)
+    if ties and n:
+        picks = np.take_along_axis(a, rng.integers(0, n, (rows, m)), -1)
+        v = np.where(rng.random((rows, m)) < 0.5, picks, v).astype(np.float32)
+    return torch.from_numpy(a).to(device), torch.from_numpy(v).to(device)
+
+
+class TestK4CpuRoute:
+    @pytest.mark.parametrize("side", ["left", "right"])
+    @pytest.mark.parametrize("ties", [False, True])
+    def test_cpu_tensor_takes_plain_twin(self, side, ties):
+        a, v = _sorted_rows(64, 63, 64, ties=ties)
+        before = searchsorted_cuda.launches
+        got = searchsorted_cuda.searchsorted_cuda(a, v, side)
+        assert searchsorted_cuda.launches == before
+        assert got.dtype == torch.int32 and got.shape == (64, 64)
+        torch.testing.assert_close(got, searchsorted(a, v, side), rtol=0, atol=0)
+        # The TPU kernel's compare-and-count, for the record.
+        count = (v[:, :, None] >= a[:, None, :]) if side == "right" else (v[:, :, None] > a[:, None, :])
+        torch.testing.assert_close(got, count.sum(-1, dtype=torch.int32), rtol=0, atol=0)
+
+    @pytest.mark.parametrize("bad,exc", [
+        (lambda a, v: (a, v, "middle"), ValueError),
+        (lambda a, v: (a[0], v, "left"), ValueError),
+        (lambda a, v: (a[:1], v, "left"), ValueError),  # K4 does not broadcast
+        (lambda a, v: (a.double(), v, "left"), TypeError),
+        (lambda a, v: (a, v.to(torch.int32), "left"), TypeError),
+        (lambda a, v: (a, v.to("meta"), "left"), ValueError),
+        (lambda a, v: (a.to("meta"), v.to("meta"), "left"), ValueError),
+    ])
+    def test_rejects_what_the_kernel_does_not_take(self, bad, exc):
+        with pytest.raises(exc):
+            searchsorted_cuda.searchsorted_cuda(*bad(*_sorted_rows(4, 9, 5)))
+
+
+def _field_inputs(n, s, cfg, *, seed=0, device="cpu"):
+    """Weights of ``cfg`` from a seed, random points, unit view directions."""
+    params = nerf.init_nerf_mlp(cfg, generator=torch.Generator().manual_seed(seed),
+                                device=device)
+    rng = np.random.default_rng(seed)
+    pts = rng.normal(size=(n, s, 3)).astype(np.float32)
+    vd = rng.normal(size=(n, 3)).astype(np.float32)
+    vd /= np.linalg.norm(vd, axis=-1, keepdims=True)
+    return params, torch.from_numpy(pts).to(device), torch.from_numpy(vd).to(device)
+
+
+class TestK3CpuRoute:
+    def test_cpu_tensor_takes_plain_twin(self):
+        cfg = nerf.NeRFConfig()
+        params, pts, vd = _field_inputs(3, 7, cfg)
+        before = mlp_cuda.launches
+        got = mlp_cuda.fused_query_field(params, cfg, pts, vd)
+        assert mlp_cuda.launches == before
+        assert got.shape == (3, 7, 4)
+        torch.testing.assert_close(got, nerf.query_field(params, cfg, pts, vd), rtol=0, atol=0)
+
+    @pytest.mark.parametrize("fields", [
+        dict(depth=4), dict(width=128), dict(skips=(3,)), dict(use_viewdirs=False),
+        dict(multires=mlp_cuda.MAX_FREQS + 1), dict(multires_views=-1),
+    ])
+    def test_unsupported_config_raises(self, fields):
+        cfg = nerf.NeRFConfig(**fields)
+        params, pts, vd = _field_inputs(2, 3, nerf.NeRFConfig())
+        with pytest.raises(ValueError):
+            mlp_cuda.fused_query_field(params, cfg, pts, vd)
+
+    @pytest.mark.parametrize("what", ["pts_rank", "viewdirs_rows", "weight_shape", "float64",
+                                      "meta", "mixed_devices", "requires_grad"])
+    def test_rejects_what_the_kernel_does_not_take(self, what):
+        cfg = nerf.NeRFConfig()
+        params, pts, vd = _field_inputs(2, 3, cfg)
+        exc = ValueError
+        if what == "pts_rank":
+            pts = pts[0]
+        elif what == "viewdirs_rows":
+            vd = vd[:1]
+        elif what == "weight_shape":
+            params["views"]["w"] = params["views"]["w"][:-1]
+        elif what == "float64":
+            pts, exc = pts.double(), TypeError
+        elif what == "meta":
+            params = bridge.tree_to_torch(bridge.tree_to_numpy(params), device="meta")
+            pts, vd = pts.to("meta"), vd.to("meta")
+        elif what == "mixed_devices":
+            pts = pts.to("meta")
+        else:
+            params["pts"][0]["w"].requires_grad_()
+        with pytest.raises(exc):
+            mlp_cuda.fused_query_field(params, cfg, pts, vd)
+
+    def test_forward_only_under_no_grad(self):
+        cfg = nerf.NeRFConfig()
+        params, pts, vd = _field_inputs(2, 3, cfg)
+        params["rgb"]["w"].requires_grad_()
+        with torch.no_grad():
+            assert mlp_cuda.fused_query_field(params, cfg, pts, vd).shape == (2, 3, 4)
+
 
 def test_package_imports_no_jax():
-    """Every module of the port imports, in a fresh interpreter, without
-    pulling in jax or the JAX package."""
+    """Every module of the port, and chip_smoke.py, imports in a fresh
+    interpreter without pulling in jax or the JAX package."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import scnerf_tpu_torch as p\n"
+        "import chip_smoke\n"
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, 'scnerf_tpu_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'scnerf_tpu.')) or m == 'scnerf_tpu')\n"
         "assert len(names) >= 15, names\n"
+        "assert {'scnerf_tpu_torch.kernels.mlp_cuda', 'scnerf_tpu_torch.kernels.searchsorted_cuda'} <= set(names), names\n"
         "assert not bad, bad\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
@@ -269,3 +406,90 @@ class TestK2OnCard:
             pdf_cuda.sample_pdf_diff(bins, torch.cat([weights, weights], -1)[:, ::2], u)
         with pytest.raises(ValueError, match="different devices"):
             pdf_cuda.sample_pdf_diff(bins, weights, u.cpu())
+
+
+@pytest.mark.cuda
+class TestK4OnCard:
+    @pytest.mark.parametrize("side", ["left", "right"])
+    @pytest.mark.parametrize("rows,n,m,ties", [
+        (8192, 63, 64, False), (4096, 63, 128, False),  # the resamplers' shapes
+        (1, 1, 1, False), (5, 17, 33, False), (1027, 200, 100, False),  # ragged
+        (8192, 63, 64, True), (3, 0, 5, False),
+    ])
+    def test_matches_plain_twin(self, cuda, side, rows, n, m, ties):
+        """Exactly the twin's indices, repeated values and queries equal to
+        row entries included."""
+        a, v = _sorted_rows(rows, n, m, ties=ties, device=cuda)
+        before = searchsorted_cuda.launches
+        got = searchsorted_cuda.searchsorted_cuda(a, v, side)
+        torch.cuda.synchronize()
+        assert searchsorted_cuda.launches == before + 1
+        assert torch.equal(got, searchsorted(a, v, side))
+
+    def test_longest_row(self, cuda):
+        a, v = _sorted_rows(3, searchsorted_cuda.MAX_ROW, 300, device=cuda)
+        got = searchsorted_cuda.searchsorted_cuda(a, v, "right")
+        torch.cuda.synchronize()
+        assert torch.equal(got, searchsorted(a, v, "right"))
+        a, v = _sorted_rows(2, searchsorted_cuda.MAX_ROW + 1, 4, device=cuda)
+        with pytest.raises(ValueError, match=str(searchsorted_cuda.MAX_ROW)):
+            searchsorted_cuda.searchsorted_cuda(a, v)
+
+    def test_rejects_on_card(self, cuda):
+        a, v = _sorted_rows(8, 9, 6, device=cuda)
+        with pytest.raises(ValueError, match="contiguous"):
+            searchsorted_cuda.searchsorted_cuda(a, torch.cat([v, v], -1)[:, ::2])
+        with pytest.raises(ValueError, match="different devices"):
+            searchsorted_cuda.searchsorted_cuda(a, v.cpu())
+
+
+def assert_field_close(got, want):
+    """Summation order over K <= 319 in each of nine layers: median |err|
+    under 1e-5, max under 2e-4 (tests/test_kernels.py's tolerance for the
+    TPU kernel)."""
+    err = (got - want).abs()
+    assert float(err.median()) < 1e-5
+    assert float(err.max()) < 2e-4
+
+
+@pytest.mark.cuda
+class TestK3OnCard:
+    @pytest.mark.parametrize("n,s,multires,multires_views", [
+        (64, 64, 10, 4), (1027, 33, 10, 4), (1, 1, 10, 4), (37, 19, 6, 2),
+    ])
+    def test_matches_plain_twin(self, cuda, n, s, multires, multires_views):
+        """The twin in full float32 (TF32 off) on the same card."""
+        cfg = nerf.NeRFConfig(multires=multires, multires_views=multires_views)
+        params, pts, vd = _field_inputs(n, s, cfg, device=cuda)
+        with fp32_inference():
+            before = mlp_cuda.launches
+            got = mlp_cuda.fused_query_field(params, cfg, pts, vd)
+            want = mlp_cuda.fused_query_field_plain(params, cfg, pts, vd)
+        torch.cuda.synchronize()
+        assert mlp_cuda.launches == before + 1
+        assert got.shape == (n, s, 4)
+        assert_field_close(got, want)
+
+    def test_points_far_out(self, cuda):
+        """NDC-sized and larger coordinates: sin/cos of 2^9 |x| in the
+        hundreds and thousands."""
+        cfg = nerf.NeRFConfig()
+        params, pts, vd = _field_inputs(128, 64, cfg, device=cuda)
+        pts = pts * 8.0
+        with fp32_inference():
+            got = mlp_cuda.fused_query_field(params, cfg, pts, vd)
+            want = mlp_cuda.fused_query_field_plain(params, cfg, pts, vd)
+        torch.cuda.synchronize()
+        assert_field_close(got, want)
+
+    def test_rejects_on_card(self, cuda):
+        cfg = nerf.NeRFConfig()
+        params, pts, vd = _field_inputs(4, 8, cfg, device=cuda)
+        with torch.no_grad():
+            with pytest.raises(ValueError, match="contiguous"):
+                mlp_cuda.fused_query_field(params, cfg, pts.transpose(0, 1), torch.cat([vd, vd]))
+            params["feature"]["w"] = params["feature"]["w"].t().contiguous().t()
+            with pytest.raises(ValueError, match="contiguous"):
+                mlp_cuda.fused_query_field(params, cfg, pts, vd)
+            with pytest.raises(ValueError, match="different devices"):
+                mlp_cuda.fused_query_field(params, cfg, pts, vd.cpu())

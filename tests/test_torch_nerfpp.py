@@ -23,8 +23,8 @@ import pytest
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 import torch  # noqa: E402
-from jax.experimental.pallas import tpu as pltpu  # noqa: E402
 
+from _torch_support import hang_watchdog, interpret  # noqa: E402,F401
 from scnerf_tpu import serve as jserve  # noqa: E402
 from scnerf_tpu.fields import nerfpp as jfield  # noqa: E402
 from scnerf_tpu.geometry import sphere as jsphere  # noqa: E402
@@ -82,7 +82,7 @@ def levels():
     k = jax.random.key(0)
     jl = [jfield.init_nerfpp_net(jax.random.fold_in(k, m), J_MODEL, n_images=N_IMAGES,
                                  autoexpo=True) for m in range(2)]
-    tl = bridge.tree_to_torch(jax.tree.map(np.asarray, {"levels": jl}))["levels"]
+    tl = bridge.tree_to_torch(jax.tree.map(np.asarray, {"levels": jl}), device="cpu")["levels"]
     return jl, tl
 
 
@@ -117,7 +117,8 @@ class TestField:
         want = jax.tree.map(np.asarray, jfield.init_nerfpp_net(
             jax.random.key(0), J_MODEL, n_images=N_IMAGES, autoexpo=True))
         got = bridge.tree_to_numpy(tfield.init_nerfpp_net(
-            T_MODEL, N_IMAGES, autoexpo=True, generator=torch.Generator().manual_seed(0)))
+            T_MODEL, N_IMAGES, autoexpo=True, generator=torch.Generator().manual_seed(0),
+            device="cpu"))
         assert jax.tree.structure(got) == jax.tree.structure(want)
         for x, y in zip(jax.tree.leaves(got), jax.tree.leaves(want)):
             assert x.shape == y.shape and x.dtype == y.dtype
@@ -191,9 +192,8 @@ class TestSamplePdfDiff:
         def loss(b, w, uu):
             return jnp.sum(sample_pdf_pallas_diff(b, w, uu, variant) * cot)
 
-        with pltpu.force_tpu_interpret_mode():
-            want = sample_pdf_pallas_diff(*j_in, variant)
-            j_grads = jax.grad(loss, argnums=(0, 1, 2))(*j_in)
+        want, j_grads = interpret(lambda: (sample_pdf_pallas_diff(*j_in, variant),
+                                           jax.grad(loss, argnums=(0, 1, 2))(*j_in)))
         t_in = [_t(x).requires_grad_() for x in (bins, weights, u)]
         before = pdf_cuda.diff_launches
         got = pdf_cuda.sample_pdf_diff(*t_in, variant)
@@ -209,8 +209,8 @@ class TestSamplePdfDiff:
         from scnerf_tpu.kernels.pdf_pallas import _pallas_fwd
 
         bins, weights, u, _ = _pdf_inputs(seed=8)
-        with pltpu.force_tpu_interpret_mode():
-            _, want_inds = _pallas_fwd(*(jnp.asarray(x) for x in (bins, weights, u)), "nerfpp")
+        _, want_inds = interpret(
+            lambda: _pallas_fwd(*(jnp.asarray(x) for x in (bins, weights, u)), "nerfpp"))
         out, inds, cdf = pdf_cuda.sample_pdf_fwd(_t(bins), _t(weights), _t(u), "nerfpp")
         assert cdf is None and inds.dtype == torch.int32
         np.testing.assert_array_equal(inds.numpy(), want_inds)
@@ -258,8 +258,7 @@ class TestSamplePdfDiff:
         # (what its TPU branch runs) on the same u.
         j_args = (jnp.asarray(mid), jnp.asarray(weights[:, 1:-1]))
         nerfpp = np.asarray(j_sample_pdf(None, *j_args, 8, u=jnp.asarray(u), variant="nerfpp"))
-        with pltpu.force_tpu_interpret_mode():
-            nerf = np.asarray(sample_pdf_pallas_core(*j_args, jnp.asarray(u)))
+        nerf = np.asarray(interpret(lambda: sample_pdf_pallas_core(*j_args, jnp.asarray(u))))
         assert_resample_close(new[:, 1:], nerfpp[:, 1:])
         # Inside a bin 4e-6 wide in the CDF, t = (u - cdf)/denom carries the
         # CDF's rounding (~1e-7) magnified: compare against the bin's width.
@@ -281,10 +280,9 @@ class TestRenderRays:
         rng = np.random.default_rng(11)
         rands = [tuple(rng.random((n, s)).astype(np.float32) for _ in range(2))
                  for s in jcfg.cascade_samples]
-        with pltpu.force_tpu_interpret_mode():
-            want = jrend.render_rays_nerfpp(
-                jl, J_MODEL, jcfg, *(jnp.asarray(x) for x in (ray_o, ray_d, md)),
-                jax.random.key(0), rands=[tuple(map(jnp.asarray, r)) for r in rands])
+        want = interpret(lambda: jrend.render_rays_nerfpp(
+            jl, J_MODEL, jcfg, *(jnp.asarray(x) for x in (ray_o, ray_d, md)),
+            jax.random.key(0), rands=[tuple(map(jnp.asarray, r)) for r in rands]))
         got = trend.render_rays_nerfpp(
             tl, T_MODEL, tcfg, *(_t(x) for x in (ray_o, ray_d, md)),
             rands=[tuple(map(_t, r)) for r in rands])
@@ -348,7 +346,7 @@ class TestServe:
 
         _, tl = levels
         nerf_cfg = NeRFConfig(depth=2, width=16, skips=(), multires=2, multires_views=2)
-        nerf_params = {"coarse": init_nerf_mlp(nerf_cfg), "fine": None}
+        nerf_params = {"coarse": init_nerf_mlp(nerf_cfg, device="cpu"), "fine": None}
         fns = [
             (tserve.make_nerfpp_serve_fn(
                 tl, T_MODEL, trend.NerfPPRenderConfig(cascade_samples=(8, 8))),

@@ -23,6 +23,7 @@ jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 import torch  # noqa: E402
 
+from _torch_support import hang_watchdog  # noqa: E402,F401
 from scnerf_tpu import serve as jserve  # noqa: E402
 from scnerf_tpu.fields.nerf import NeRFConfig as JNeRFConfig  # noqa: E402
 from scnerf_tpu.fields.nerf import init_nerf_mlp as j_init_nerf_mlp  # noqa: E402
@@ -71,7 +72,7 @@ def params():
     k = jax.random.key(0)
     jp = {"coarse": j_init_nerf_mlp(k, J_MODEL),
           "fine": j_init_nerf_mlp(jax.random.fold_in(k, 1), J_MODEL)}
-    return jp, bridge.tree_to_torch(jax.tree.map(np.asarray, jp))
+    return jp, bridge.tree_to_torch(jax.tree.map(np.asarray, jp), device="cpu")
 
 
 def _rays(n, seed=0, forward=False):

@@ -8,8 +8,8 @@ import pytest
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 import torch  # noqa: E402
-from jax.experimental.pallas import tpu as pltpu  # noqa: E402
 
+from _torch_support import hang_watchdog, interpret  # noqa: E402,F401
 from scnerf_tpu.kernels.pdf_pallas import sample_pdf_pallas_core  # noqa: E402
 from scnerf_tpu.sampling import pdf as jpdf  # noqa: E402
 from scnerf_tpu.sampling.searchsorted import searchsorted as j_searchsorted  # noqa: E402
@@ -123,9 +123,8 @@ class TestSamplePdf:
         """The Pallas kernel run in interpret mode, as tests/test_kernels.py
         runs it on the CPU."""
         bins, weights, u = _pdf_inputs(3, *shape)
-        with pltpu.force_tpu_interpret_mode():
-            want = sample_pdf_pallas_core(jnp.asarray(bins), jnp.asarray(weights),
-                                          jnp.asarray(u))
+        want = interpret(lambda: sample_pdf_pallas_core(jnp.asarray(bins), jnp.asarray(weights),
+                                                        jnp.asarray(u)))
         got = tpdf.sample_pdf(None, _t(bins), _t(weights), shape[2], u=_t(u))
         assert_resample_close(got.numpy(), want, bins)
 
