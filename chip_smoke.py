@@ -49,7 +49,9 @@ the JAX package. Phases, each of which exits non-zero when it fails:
    queries equal to row entries, both sides. The indices must equal the
    twin's exactly. Time per call of K4, of the twin and of
    ``torch.searchsorted`` (the one PyTorch call that computes the same
-   function).
+   function), the three timed in turns: by CUDA events (11 turns of 50
+   calls), and host-only (``perf_counter_ns`` around 1,000 calls with no
+   synchronisation, then one ``synchronize``; 3 turns).
 9. K3, the fused encoding + NeRF MLP CUDA kernel, on its own path, at the
    points the NeRF serving path queries: the coarse (8192, 64) and fine
    (8192, 128) points and view directions of one 8192-ray batch of phase 3,
@@ -57,14 +59,20 @@ the JAX package. Phases, each of which exits non-zero when it fails:
    coarse and fine weights, and a ragged (1027, 33) cut of the fine points.
    Median |err| < 1e-5 and max < 2e-4 against the twin and against the raw
    output the serving path computed, both in full float32. Time per call of
-   K3, the twin and ``query_field``.
+   K3 (the wrapper's weight packing included), of the packing alone, of the
+   twin and of ``query_field``; K3's bound is its 3xTF32 operations on the
+   tensor cores (three TF32 passes at 495 TFLOP/s), printed beside the
+   float32 CUDA-core bound, and its rate counts the useful float32
+   operations (2 per multiply-add of the MLP).
 
 Each serving path, and each of K3's and K4's own paths, runs with the
 kernels' launch counts set to 0 just before it and read just after. The
 line before the last is one JSON object with the kernels' numbers, each with
 the least time the card could take for its work (``bound_ms``: bytes over
-3.35 TB/s or float32 operations over 67 TFLOP/s, the larger); the last line
-is ``{"ok": true, "device": {...}}``.
+3.35 TB/s or operations over the peak of the unit the kernel uses, float32
+at 67 TFLOP/s or, for K3, three TF32 passes at 495 TFLOP/s; the larger); the
+line before it is the card's name and power limit; the last line is
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -108,19 +116,22 @@ SEARCH_SHAPES = ((BATCH, 63, 64), (PP_BATCH, 63, 128))
 SEARCH_RAGGED = ((1, 1, 1), (5, 17, 33), (1027, 200, 100))
 K3_RAGGED = (1027, 33)
 K3_TIMING_CALLS = 3  # a fine-shape call takes tens of milliseconds
+HOST_CALLS = 1000  # phase 8's host-only timing
+K4_TIMING_TURNS = 11
 
-# H100 SXM, NVIDIA's data sheet: HBM bytes/s and float32 FLOP/s outside the
-# tensor cores, at the 700 W limit.
+# H100 SXM, NVIDIA's data sheet: HBM bytes/s, float32 FLOP/s outside the
+# tensor cores and dense TF32 FLOP/s on them, at the 700 W limit.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+TF32_FLOP_PER_S = 495e12
 
 
-def bound(n_bytes: float, n_ops: float) -> dict:
+def bound(n_bytes: float, n_ops: float, peak: float = FP32_FLOP_PER_S) -> dict:
     """The least time the card could take: each input read and each output
-    written once at the HBM rate, or the operations at the float32 rate,
-    whichever is longer."""
+    written once at the HBM rate, or the operations at ``peak``, the rate of
+    the unit that does them, whichever is longer."""
     bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = n_ops / FP32_FLOP_PER_S * 1e3
+    ops_ms = n_ops / peak * 1e3
     return {"bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
@@ -152,22 +163,42 @@ def card_line() -> str:
     return out.stdout.strip()
 
 
-def per_call_ms(fn, calls: int = TIMING_CALLS, repeats: int = TIMING_REPEATS) -> float:
-    """Milliseconds per call: CUDA events around ``calls`` back-to-back calls,
-    after a warm-up; the median over ``repeats`` such runs."""
-    for _ in range(3):
-        fn()
-    times = []
-    for _ in range(repeats):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(calls):
+def in_turns(fns: dict, calls: int, repeats: int, *, host_only: bool = False) -> dict:
+    """Milliseconds per call of each of ``fns``, their runs of ``calls``
+    back-to-back calls taken in turns (a, b, c, a, b, c, ...) so that the
+    host's noise falls on all alike; the median over ``repeats`` turns. By
+    CUDA events around each run, or, with ``host_only``, by
+    ``perf_counter_ns`` around the calls with no synchronisation (what the
+    caller's thread spends to enqueue one) and one ``synchronize`` after the
+    clock stops."""
+    for fn in fns.values():
+        for _ in range(3):
             fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / calls)
-    return statistics.median(times)
+    torch.cuda.synchronize()
+    times = {name: [] for name in fns}
+    for _ in range(repeats):
+        for name, fn in fns.items():
+            if host_only:
+                t0 = time.perf_counter_ns()
+                for _ in range(calls):
+                    fn()
+                times[name].append((time.perf_counter_ns() - t0) / calls / 1e6)
+                torch.cuda.synchronize()
+                continue
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(calls):
+                fn()
+            end.record()
+            end.synchronize()
+            times[name].append(start.elapsed_time(end) / calls)
+    return {name: statistics.median(t) for name, t in times.items()}
+
+
+def per_call_ms(fn, calls: int = TIMING_CALLS, repeats: int = TIMING_REPEATS) -> float:
+    """Milliseconds per call of ``fn`` alone, by :func:`in_turns`."""
+    return in_turns({"fn": fn}, calls, repeats)["fn"]
 
 
 def rodrigues(axis: np.ndarray, angle: np.ndarray) -> np.ndarray:
@@ -613,16 +644,24 @@ def phase_k4(dev):
     for shape, ties, a, v in cases[:len(SEARCH_SHAPES)]:
         rows, n, m = shape
         # The resamplers count u >= cdf: the right side.
-        ms = per_call_ms(lambda: searchsorted_cuda.searchsorted_cuda(a, v, "right"))
-        plain_ms = per_call_ms(lambda: searchsorted(a, v, "right"))
-        library_ms = per_call_ms(lambda: torch.searchsorted(a, v, side="right", out_int32=True))
+        fns = {"kernel": lambda: searchsorted_cuda.searchsorted_cuda(a, v, "right"),
+               "plain": lambda: searchsorted(a, v, "right"),
+               "library": lambda: torch.searchsorted(a, v, side="right", out_int32=True)}
+        by_events = in_turns(fns, TIMING_CALLS, K4_TIMING_TURNS)
+        ms, plain_ms, library_ms = by_events["kernel"], by_events["plain"], by_events["library"]
+        host_only = in_turns(fns, HOST_CALLS, 3, host_only=True)
+        host = {"host_ms": host_only["kernel"], "plain_host_ms": host_only["plain"],
+                "library_host_ms": host_only["library"]}
         # Reads a and v, writes the indices; a binary search per query.
         bnd = bound(4 * (rows * n + 2 * rows * m), rows * m * math.ceil(math.log2(n + 1)))
         print(f"  a ({rows},{n}) v ({rows},{m}) right: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-              f"torch.searchsorted_ms={library_ms:.4f} bound_ms={bnd['bound_ms']:.6f}")
+              f"torch.searchsorted_ms={library_ms:.4f} bound_ms={bnd['bound_ms']:.6f}; "
+              f"host-only ms per call over {HOST_CALLS}: kernel {host['host_ms']:.4f}, "
+              f"plain {host['plain_host_ms']:.4f}, torch.searchsorted {host['library_host_ms']:.4f}; "
+              f"kernel/torch.searchsorted by events {ms / library_ms:.2f}x")
         if record is None:  # the NeRF resampler's shape
             record = dict(max_abs_err=float(errs[shape]), ms=ms, plain_ms=plain_ms, **bnd,
-                          library_ms=library_ms)
+                          library_ms=library_ms, **host)
     return record, launches
 
 
@@ -660,6 +699,8 @@ def phase_k3(model_cfg, queries):
     from scnerf_tpu_torch.serve import fp32_inference
 
     print("== phase 9: K3 fused encoding + NeRF MLP kernel at the NeRF serving path's points")
+    print(f"  dynamic shared memory per block at multires {model_cfg.multires}/"
+          f"{model_cfg.multires_views}: {mlp_cuda.shared_memory_bytes(model_cfg)} bytes")
     coarse, fine = queries
     n, s = K3_RAGGED
     cases = {"coarse": coarse, "fine": fine, "ragged": dict(
@@ -700,24 +741,34 @@ def phase_k3(model_cfg, queries):
                 return per_call_ms(lambda: fn(*args), calls=K3_TIMING_CALLS, repeats=3)
 
         ms = timed(mlp_cuda.fused_query_field)
+        pack_ms = per_call_ms(lambda: mlp_cuda.pack_weights(q["params"], model_cfg),
+                              repeats=3)
         plain_ms = timed(mlp_cuda.fused_query_field_plain)
         query_field_ms = timed(query_field)
         weights = [x for layer in [*q["params"]["pts"], *(q["params"][h] for h in mlp_cuda.HEADS)]
                    for x in (layer["w"], layer["b"])]
         macs = sum(layer.numel() for layer in weights[::2])  # per point
         points = q["pts"].shape[0] * q["pts"].shape[1]
-        # Reads the points, view directions and weights once, writes the
-        # raw outputs; 2 FLOP per multiply-add (the sin/cos are not counted).
-        bnd = bound(4 * (q["pts"].numel() + q["viewdirs"].numel()
-                         + sum(x.numel() for x in weights) + got.numel()), 2 * macs * points)
-        print(f"  {name}: {macs} MAC/point; kernel_ms={ms:.3f} plain_ms={plain_ms:.3f} "
-              f"query_field_ms={query_field_ms:.3f} bound_ms={bnd['bound_ms']:.3f} "
-              f"({bnd['bound_by']}); kernel {2 * macs * points / ms / 1e9:.2f} TFLOP/s")
+        flop = 2 * macs * points  # useful float32 operations (the sin/cos not counted)
+        # Reads the points, view directions and weights once, writes the raw
+        # outputs; the tensor cores do each multiply-add three times (3xTF32).
+        n_bytes = 4 * (q["pts"].numel() + q["viewdirs"].numel()
+                       + sum(x.numel() for x in weights) + got.numel())
+        bnd = bound(n_bytes, 3 * flop, TF32_FLOP_PER_S)
+        fp32_simt_ms = bound(n_bytes, flop)["bound_ms"]
+        print(f"  {name}: {macs} MAC/point; kernel_ms={ms:.3f} (packing {pack_ms:.3f} of it) "
+              f"plain_ms={plain_ms:.3f} query_field_ms={query_field_ms:.3f} "
+              f"bound_ms={bnd['bound_ms']:.3f} (3xTF32 on the tensor cores; "
+              f"{bnd['bound_ms'] / ms:.1%} of it) bound_fp32_simt_ms={fp32_simt_ms:.3f}; "
+              f"kernel {flop / ms / 1e9:.2f} useful TFLOP/s; "
+              f"query_field/kernel {query_field_ms / ms:.2f}x")
         if name == "fine":
             record = dict(max_abs_err=errs["twin"][1], median_abs_err=errs["twin"][0],
                           max_abs_err_query_field=errs["query_field"][1], ms=ms,
                           plain_ms=plain_ms, query_field_ms=query_field_ms, **bnd,
-                          library_ms=None)
+                          bound_unit="3xTF32 on tensor cores: 3 passes at 495 TFLOP/s",
+                          bound_fp32_simt_ms=fp32_simt_ms, pack_ms=pack_ms,
+                          useful_tflops=flop / ms / 1e9, library_ms=None)
     return record, launches
 
 

@@ -1,4 +1,5 @@
-// K3: positional encoding and the whole NeRF MLP in one kernel, forward only.
+// K3: positional encoding and the whole NeRF MLP in one kernel, forward only,
+// its products on Hopper's tensor cores (wgmma) in 3xTF32.
 //
 // Replaces the Pallas TPU kernel scnerf_tpu/kernels/mlp_pallas.py:
 // fused_query_field (body _kernel), for the configs it supports: depth 8,
@@ -12,56 +13,270 @@
 //   out = [rgb, alpha]    (N, S, 4)
 //
 // What bounds it: operations. A point costs 593,408 multiply-adds at
-// multires 10/4 (the sum of the weights' sizes) and moves 40 bytes (pts,
-// its share of viewdirs, out): 1.19 MFLOP per 40 B, far above the H100's 20
-// FLOP/B of float32 without tensor cores. At the fine shape of the NeRF
-// serving path (8192 rays x 128 samples) that is 1.245 TFLOP, 18.6 ms at the
-// published 67 TFLOP/s, against 42 MB of traffic (12.5 us).
+// multires 10/4 and moves 40 bytes; at the fine shape of the NeRF serving
+// path (8192 rays x 128 samples) that is 1.245 TFLOP against 42 MB. On the
+// CUDA cores (67 TFLOP/s of float32) no kernel can take less than 18.6 ms.
+// The tensor cores multiply TF32 at 495 TFLOP/s (dense), and 3xTF32 takes
+// three passes: 7.54 ms.
 //
-// Design (the simple one; tensor cores, a TMA weight ring and the like are
-// later work): a block of 256 threads owns a tile of 64 points. The
-// activations never leave shared memory: one buffer of rows x 64 points,
-// row-major by feature (a row is 68 floats, padded so that the threads'
-// float4 stores of their rows fall in different banks). The encoding goes
-// into rows [0, P); every trunk layer writes its 256 outputs into rows
-// [P, P + 256), so after layer 4 rows [0, P + 256) are [pe, h] and the skip
-// concat costs nothing. The feature head writes rows [0, 256) and the view
-// encoding goes into [256, 256 + V), so [feat, ve] is free too. Thread j
-// computes output column j for all 64 points: 64 float32 accumulators in
-// registers, one coalesced load of W[k, j] per k serving 64 FMAs, the 64
-// inputs of row k read as 16 broadcast float4 loads. A layer writes over its
-// own input: its outputs wait in registers until a barrier says every thread
-// has read the input. One buffer (87 KB at 10/4) lets two blocks share an SM.
-// The weights (2.37 MB) are read from global memory through L2, which holds
-// them all; the TPU kernel keeps them resident in VMEM, but one 256 x 256
-// float32 layer (256 KB) alone exceeds a block's 227 KB of shared memory.
-// The views head (128 outputs) uses half the threads; alpha (1) and rgb (3)
-// give a thread a (point, output) pair instead. Frequencies are the exact
-// powers 2^i, as fields/encoding.py:freq_bands makes them for NeRFConfig, and
-// sin/cos are the precise sinf/cosf: arguments reach 2^9 |x|, where the fast
-// intrinsics are off by far more than the tolerance. Float32 FMA throughout,
-// summing over k in order; no TF32, no bf16.
+// Why 3xTF32: the port holds K3 to float32 limits against its float32 twin
+// (median |err| < 1e-5, max < 2e-4). One TF32 pass keeps 11 significant
+// bits of each operand, about 5e-4 of relative error per product. Each
+// operand x is split into big = tf32(x) and small = tf32(x - big) (rounded
+// as cvt.rna.tf32.f32 does: to nearest, ties away from zero), and each
+// product is small_a big_b + big_a small_b + big_a big_b, small products
+// first. What is left out, small_a small_b and the rounding of the small
+// halves, is about 2^-22 of each product: float32's own order of error.
+// The tensor cores' float32 accumulation truncates: each product step loses
+// up to an ulp of its accumulator, always toward zero, so a 256-wide layer
+// summed in one accumulator drifts by up to some 1e-5 of its value, and the
+// card tests' far-out points then miss the median limit. So the products of
+// each K-slice go into a fresh accumulator, which is then added to the
+// layer's float32 sums with rounding FADDs.
+//
+// Design:
+// - A block of 256 threads, two warpgroups, owns a tile of 64 points: the
+//   flush keeps a slice's products beside the float32 sums, so a thread
+//   holds two accumulator sets, and 128 points x 256 outputs would need 256
+//   registers a thread for them. Each tile streams the whole packed weights
+//   (4.75 MB at 10/4) from L2. The activations never leave shared memory:
+//   one buffer, feature-major (act[row][point]), rows of 72 floats. 72 = 8
+//   mod 32 puts the 32 loads of an A fragment (4 rows x 8 points) into 32
+//   different banks.
+// - Rows with K padded to a multiple of 32 by zero rows (the K-slices are
+//   32 or 16 deep): pe in rows [0, pe_pad) (63 -> 64 at 10/4), each trunk
+//   layer writes rows [pe_pad, pe_pad + 256), so after layer 4 the rows are
+//   [pe, 0, h] and the skip concat costs nothing (319 -> 320 wide). The
+//   feature head writes rows [0, 256) and the view encoding goes into
+//   [256, 256 + ve_pad) (283 -> 288 wide), so [feat, ve] is free too. A
+//   layer writes over its own input: its outputs wait in the accumulators
+//   until a block barrier says every warp has read the input.
+// - The 8 trunk layers, feature (256 -> 256) and views (288 -> 128), 99.9%
+//   of the multiply-adds, run on the tensor cores: wgmma.m64nNk8.tf32, A
+//   (the activations, split in registers: cvt.rna, a subtraction, cvt.rna)
+//   from registers, B (the weights, split by the wrapper) from shared
+//   memory, K-major as TF32 requires. Each warpgroup owns half the outputs
+//   of a layer for all 64 points: 64 x 128 (64 float32 accumulators a
+//   thread and 64 for a slice's products) or 64 x 64 for views. alpha
+//   (256 -> 1) and rgb (128 -> 3) stay on the CUDA cores in float32 FMA.
+// - Weights: the wrapper (kernels/mlp_cuda.py:pack_weights) transposes each
+//   tensor-core layer to K-major, pads K with the zero rows above, splits it
+//   into TF32 big and small and lays out each k8 step of it as two tiles,
+//   big then small, of wgmma's canonical K-major form without swizzle: core
+//   matrices of 8 outputs x 4 K (16 bytes a row, 128 bytes each), the two of
+//   a k8 step 128 bytes apart, the next 8 outputs 256 bytes on. All layers
+//   make one contiguous stream, then the biases and the alpha and rgb
+//   weights in float32. One 256 x 256 layer (512 KB split) is larger than a
+//   block's 227 KB of shared memory, so the stream passes through a ring in
+//   shared memory, a K-slice a stage, filled by cp.async one slice ahead
+//   (two with 3 stages), across layer boundaries: per slice one block
+//   barrier, one wgmma group (3 products a k8 step), one wait and one flush.
+//   The deeper the slice, the fewer of those per multiply-add: 32 rows (2
+//   stages of 64 KB) where shared memory allows, else 16 (3 stages of 32
+//   KB).
+// - Shared memory: act (256 + max(pe_pad, ve_pad)) x 72 x 4 B, 92,160 at
+//   10/4 and 110,592 at 16/16, plus the ring: 223,232 at 10/4 (32-deep),
+//   208,896 at 16/16 (16-deep), of the 232,448 a block may use; one block
+//   per SM. Registers: 64 accumulators, 64 for a slice's products, 8 for
+//   each k8 step's split A fragment (-Xptxas -v in build/kernels/
+//   fused_mlp.log: no spills).
+// - Frequencies are the exact powers 2^i, as fields/encoding.py:freq_bands
+//   makes them for NeRFConfig, and sin/cos are the precise sinf/cosf:
+//   arguments reach 2^15 |x|, where the fast intrinsics are off by far more
+//   than the tolerance. No fast math.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kTile = 64;          // points per block
-constexpr int kThreads = 256;      // = kWidth: one thread per output column
-constexpr int kStride = kTile + 4; // floats per activation row
+constexpr int kTile = 64;           // points per block: wgmma's M
+constexpr int kThreads = 256;       // two warpgroups
+constexpr int kStride = kTile + 8;  // floats per activation row, 8 mod 32
 constexpr int kWidth = 256;
 constexpr int kViewsWidth = 128;
 constexpr int kDepth = 8;
-constexpr int kSkip = 4;           // [pe, h] after this layer
-constexpr int kLayers = kDepth + 4;  // trunk, feature, alpha, views, rgb
-constexpr int kFeature = kDepth, kAlpha = kDepth + 1, kViews = kDepth + 2, kRgb = kDepth + 3;
+constexpr int kSkip = 4;            // [pe, h] after this layer
 constexpr int kMaxFreqs = 16;
+constexpr int kAlignK = 32;         // K of every tensor-core layer pads to this
+constexpr size_t kMaxSmem = 232448; // what one block may use on sm_90
 constexpr size_t kDefaultSmem = 48 * 1024;
+// Float offsets of the biases after the tensor-core stream: trunk 8 x 256,
+// feature 256, views 128, alpha 1, rgb 3; then alpha's weights (256) and
+// rgb's (128 x 3).
+constexpr int kBiasFeature = kDepth * kWidth, kBiasViews = kBiasFeature + kWidth,
+              kBiasAlpha = kBiasViews + kViewsWidth, kBiasRgb = kBiasAlpha + 1,
+              kBiasFloats = kBiasRgb + 3;
 
-struct Params {
-  const float* w[kLayers];  // (in, out), row-major
-  const float* b[kLayers];  // (out,)
+constexpr int pad_k(int x) { return (x + kAlignK - 1) / kAlignK * kAlignK; }
+
+// Where things lie in the packed weights (mlp_cuda.py:pack_weights computes
+// the same table).
+struct Layout {
+  int pe_rows, pe_pad, ve_rows, ve_pad;
+  int wide_k;   // K of the trunk and feature layers together (N = 256)
+  int views_k;  // K of the views layer (N = 128)
+  int64_t bias;  // float offsets
+  int64_t alpha_w;
+  int64_t rgb_w;
+};
+
+Layout make_layout(int n_freqs_pos, int n_freqs_view) {
+  Layout lay;
+  lay.pe_rows = 3 + 6 * n_freqs_pos;
+  lay.ve_rows = 3 + 6 * n_freqs_view;
+  lay.pe_pad = pad_k(lay.pe_rows);
+  lay.ve_pad = pad_k(lay.ve_rows);
+  // K of layer 0, 1-4, 5 ([pe, 0, h]), 6-7, feature; then views.
+  lay.wide_k = lay.pe_pad + 4 * kWidth + (lay.pe_pad + kWidth) + 2 * kWidth + kWidth;
+  lay.views_k = kWidth + lay.ve_pad;
+  lay.bias = 2 * (static_cast<int64_t>(lay.wide_k) * kWidth +
+                  static_cast<int64_t>(lay.views_k) * kViewsWidth);
+  lay.alpha_w = lay.bias + kBiasFloats;
+  lay.rgb_w = lay.alpha_w + kWidth;
+  return lay;
+}
+
+size_t act_bytes(const Layout& lay) {
+  const int rows = kWidth + (lay.pe_pad > lay.ve_pad ? lay.pe_pad : lay.ve_pad);
+  return static_cast<size_t>(rows) * kStride * sizeof(float);
+}
+
+// The ring's bytes for K-slices of k rows in `stages` stages (a stage holds
+// a slice of the widest layer, big and small).
+constexpr size_t ring_bytes(int k, int stages) {
+  return static_cast<size_t>(stages) * k * kWidth * 2 * sizeof(float);
+}
+
+// The deeper slices where they fit beside the activations.
+bool deep_slices(const Layout& lay) { return act_bytes(lay) + ring_bytes(32, 2) <= kMaxSmem; }
+
+size_t shared_bytes(const Layout& lay) {
+  return act_bytes(lay) + (deep_slices(lay) ? ring_bytes(32, 2) : ring_bytes(16, 3));
+}
+
+// cvt.rna.tf32.f32: to the nearest TF32 value, ties away from zero, as an
+// fp32 bit pattern whose low 13 bits are 0.
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// wgmma's shared-memory matrix descriptor for a K-major TF32 tile without
+// swizzle: the start address, the two core matrices of a k8 step 128 bytes
+// apart (leading byte offset), the next 8 rows 256 bytes on (stride byte
+// offset), all in 16-byte units.
+__device__ __forceinline__ uint64_t tile_desc(const float* tile) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(tile));
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(128 >> 4) << 16) |
+         (static_cast<uint64_t>(256 >> 4) << 32);
+}
+
+// d (+)= a b over one k8 step for the warpgroup's 64 points x 128 outputs: a
+// in registers (the A fragment, TF32), b through its shared-memory
+// descriptor (K-major TF32), d float32; scale_d = 0 writes d, 1 adds to it.
+__device__ __forceinline__ void wgmma_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t b,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+// d (+)= a b over one k8 step for the warpgroup's 64 points x 64 outputs: a
+// in registers (the A fragment, TF32), b through its shared-memory
+// descriptor (K-major TF32), d float32; scale_d = 0 writes d, 1 adds to it.
+__device__ __forceinline__ void wgmma_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t b,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+template <int kN>
+__device__ __forceinline__ void wgmma(float (&d)[kN / 2], const uint32_t (&a)[4], uint64_t b,
+                                      int scale_d) {
+  if constexpr (kN == 128) {
+    wgmma_n128(d, a, b, scale_d);
+  } else {
+    wgmma_n64(d, a, b, scale_d);
+  }
+}
+
+// Keeps the compiler from reading d before the wgmma that write it are
+// waited for.
+template <int kRegs>
+__device__ __forceinline__ void fence_regs(float (&d)[kRegs]) {
+#pragma unroll
+  for (int i = 0; i < kRegs; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(s), "l"(src) : "memory");
+}
+
+// The weight ring: kStages stages of shared memory, filled in turn with the
+// K-slices (kSliceK rows) of the packed stream, in order. Every thread of
+// the block calls fetch and acquire in the same order (each commits one
+// cp.async group per call).
+template <int kSliceK, int kStages>
+struct Ring {
+  static constexpr int kStageFloats = kSliceK * kWidth * 2;
+  float* buf;
+  const float* src;  // the next slice to fetch
+  int fetched;       // slices fetched so far (or skipped past the end)
+  int stage;         // the stage acquire returns next
+  int wide_slices, total_slices;
+
+  // Starts the copy of the next slice into stage `into` (nothing past the
+  // end).
+  __device__ __forceinline__ void fetch(int into) {
+    if (fetched < total_slices) {
+      const int floats = fetched < wide_slices ? kStageFloats : kStageFloats / 2;
+      float* dst = buf + into * kStageFloats;
+      for (int i = threadIdx.x * 4; i < floats; i += kThreads * 4) cp_async16(dst + i, src + i);
+      src += floats;
+    }
+    ++fetched;
+    asm volatile("cp.async.commit_group;" ::: "memory");
+  }
+
+  // Waits for the next slice (every thread's copies, made visible to
+  // wgmma's async proxy), refills the stage the slice before it used (every
+  // warp is past it: its wgmma were waited for before the barrier), and
+  // returns the next slice's stage.
+  __device__ __forceinline__ const float* acquire() {
+    asm volatile("cp.async.wait_group %0;" ::"n"(kStages - 2) : "memory");
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    __syncthreads();
+    fetch(stage == 0 ? kStages - 1 : stage - 1);
+    const float* out = buf + stage * kStageFloats;
+    stage = stage + 1 == kStages ? 0 : stage + 1;
+    return out;
+  }
 };
 
 // Writes [x, sin(2^0 x), cos(2^0 x), ...] of coordinate d of point p into
@@ -76,149 +291,203 @@ __device__ __forceinline__ void encode(float x, int d, int p, int n_freqs, int r
   }
 }
 
-// Rows [out_row, out_row + n_out) = act(rows [in_row, in_row + k_dim) W + b)
-// for the tile's points; may overwrite its own input. Every thread of the
-// block must call it (it holds two block barriers).
-template <bool kRelu>
-__device__ __forceinline__ void dense(const float* __restrict__ w,
-                                      const float* __restrict__ b, int k_dim,
-                                      int n_out, float* act, int in_row, int out_row) {
-  const int j = threadIdx.x;
-  float acc[kTile];
+// Rows [out_row, out_row + 2 kN) = act(rows [in_row, in_row + k_dim) W + b)
+// for the tile's points, W from the next k_dim / kSliceK slices of the
+// ring; may overwrite its own input. Every thread of the block calls it;
+// warpgroup w computes outputs [w kN, (w + 1) kN).
+template <int kN, bool kRelu, int kSliceK, int kStages>
+__device__ __forceinline__ void tc_layer(Ring<kSliceK, kStages>& ring, float* act, int in_row,
+                                         int k_dim, int out_row, const float* __restrict__ bias) {
+  constexpr int kRegs = kN / 2;
+  constexpr int kSteps = kSliceK / 8;       // k8 steps a slice
+  constexpr int kStepFloats = 8 * 2 * kN * 2;  // a k8 step's big and small tiles
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, q = lane & 3;  // the fragments' row group and column
+  const int p0 = 16 * (warp & 3);         // the warp's 16 points
+  const int n0 = (warp >> 2) * kN;        // the warpgroup's first output
+  float acc[kRegs], part[kRegs];
 #pragma unroll
-  for (int p = 0; p < kTile; ++p) acc[p] = 0.f;
-  if (j < n_out) {
-    const float* x = act + in_row * kStride;
-    const float* wj = w + j;
-#pragma unroll 4
-    for (int k = 0; k < k_dim; ++k) {
-      const float wk = __ldg(wj + static_cast<int64_t>(k) * n_out);
-      const float4* xk = reinterpret_cast<const float4*>(x + k * kStride);
+  for (int i = 0; i < kRegs; ++i) acc[i] = 0.f;
+
+  for (int k0 = 0; k0 < k_dim; k0 += kSliceK) {
+    const float* stage = ring.acquire();
+    // A fragment of step t: a0 (point g, k q), a1 (g + 8, q), a2 (g, q + 4),
+    // a3 (g + 8, q + 4) of the warp's 16 points.
+    uint32_t a_big[kSteps][4], a_small[kSteps][4];
 #pragma unroll
-      for (int q = 0; q < kTile / 4; ++q) {
-        const float4 xv = xk[q];
-        acc[4 * q + 0] = fmaf(xv.x, wk, acc[4 * q + 0]);
-        acc[4 * q + 1] = fmaf(xv.y, wk, acc[4 * q + 1]);
-        acc[4 * q + 2] = fmaf(xv.z, wk, acc[4 * q + 2]);
-        acc[4 * q + 3] = fmaf(xv.w, wk, acc[4 * q + 3]);
+    for (int t = 0; t < kSteps; ++t) {
+      const float* x = act + (in_row + k0 + 8 * t + q) * kStride + p0 + g;
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float v = x[(r >> 1) * 4 * kStride + (r & 1) * 8];
+        a_big[t][r] = to_tf32(v);
+        a_small[t][r] = to_tf32(v - __uint_as_float(a_big[t][r]));
       }
     }
-  }
-  __syncthreads();  // every thread has read the input rows
-  if (j < n_out) {
-    const float bj = __ldg(b + j);
-    float4* y = reinterpret_cast<float4*>(act + (out_row + j) * kStride);
+    asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
 #pragma unroll
-    for (int q = 0; q < kTile / 4; ++q) {
-      float4 o = make_float4(acc[4 * q] + bj, acc[4 * q + 1] + bj, acc[4 * q + 2] + bj,
-                             acc[4 * q + 3] + bj);
-      if (kRelu) {
-        o.x = fmaxf(o.x, 0.f);
-        o.y = fmaxf(o.y, 0.f);
-        o.z = fmaxf(o.z, 0.f);
-        o.w = fmaxf(o.w, 0.f);
-      }
-      y[q] = o;
+    for (int t = 0; t < kSteps; ++t) {
+      // The warpgroup's outputs start n0 / 8 core-matrix pairs (64 floats
+      // each) into the tile; the small tile follows the big one.
+      const float* big = stage + t * kStepFloats + n0 * 8;
+      const uint64_t b_big = tile_desc(big), b_small = tile_desc(big + 2 * kN * 8);
+      wgmma<kN>(part, a_small[t], b_big, t > 0);
+      wgmma<kN>(part, a_big[t], b_small, 1);
+      wgmma<kN>(part, a_big[t], b_big, 1);
     }
+    asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+    fence_regs(part);
+#pragma unroll
+    for (int i = 0; i < kRegs; ++i) acc[i] += part[i];
   }
-  __syncthreads();  // the output rows are written
+  __syncthreads();  // every warp has read the input rows
+
+  // Register i holds point g + 8 ((i >> 1) & 1) of the warp's 16, output
+  // n0 + 8 (i / 4) + 2q + (i & 1).
+#pragma unroll
+  for (int i = 0; i < kRegs; ++i) {
+    const int n = n0 + 8 * (i / 4) + 2 * q + (i & 1);
+    float o = acc[i] + __ldg(bias + n);
+    if (kRelu) o = fmaxf(o, 0.f);
+    act[(out_row + n) * kStride + p0 + g + 8 * ((i >> 1) & 1)] = o;
+  }
+  // The next reader's barrier (the next layer's first acquire, or an
+  // explicit one) orders these writes before its reads.
 }
 
-__global__ void __launch_bounds__(kThreads, 2)
+template <int kSliceK, int kStages>
+__global__ void __launch_bounds__(kThreads, 1)
 fused_query_field_kernel(const float* __restrict__ pts, const float* __restrict__ viewdirs,
-                         Params prm, float* __restrict__ out, int64_t n_points,
-                         int n_samples, int n_freqs_pos, int n_freqs_view) {
-  extern __shared__ __align__(16) float act[];
-  const int64_t tile0 = static_cast<int64_t>(blockIdx.x) * kTile;
-  const int pe_rows = 3 + 6 * n_freqs_pos;
-  const int ve_rows = 3 + 6 * n_freqs_view;
+                         const float* __restrict__ w, Layout lay, float* __restrict__ out,
+                         int64_t n_points, int n_samples, int n_freqs_pos, int n_freqs_view) {
+  extern __shared__ __align__(16) float smem[];
+  float* act = smem;
+  const int rows = kWidth + (lay.pe_pad > lay.ve_pad ? lay.pe_pad : lay.ve_pad);
+  const int wide_slices = lay.wide_k / kSliceK;
+  Ring<kSliceK, kStages> ring{smem + rows * kStride, w, 0, 0, wide_slices,
+                              wide_slices + lay.views_k / kSliceK};
+  for (int s = 0; s < kStages - 1; ++s) ring.fetch(s);  // loads while the encoding runs
 
-  // pe into rows [0, pe_rows); the ragged tile's missing points read 0.
+  const int64_t tile0 = static_cast<int64_t>(blockIdx.x) * kTile;
+  const float* bias = w + lay.bias;
+
+  // pe into rows [0, pe_rows), zero rows up to pe_pad; the ragged tile's
+  // missing points read 0. The first layer's barrier orders these writes.
   for (int t = threadIdx.x; t < 3 * kTile; t += kThreads) {
     const int p = t / 3, d = t % 3;
     const int64_t point = tile0 + p;
     const float x = point < n_points ? pts[point * 3 + d] : 0.f;
     encode(x, d, p, n_freqs_pos, 0, act);
   }
-  __syncthreads();
+  for (int t = threadIdx.x; t < (lay.pe_pad - lay.pe_rows) * kTile; t += kThreads) {
+    act[(lay.pe_rows + t / kTile) * kStride + t % kTile] = 0.f;
+  }
 
-  // The trunk: layer 0 reads pe, layer kSkip + 1 reads [pe, h], the rest h.
-  dense<true>(prm.w[0], prm.b[0], pe_rows, kWidth, act, 0, pe_rows);
+  // The trunk: layer 0 reads pe, layer kSkip + 1 reads [pe, 0, h], the rest h.
+  tc_layer<kWidth / 2, true>(ring, act, 0, lay.pe_pad, lay.pe_pad, bias);
   for (int l = 1; l < kDepth; ++l) {
     const bool skip_in = l == kSkip + 1;
-    dense<true>(prm.w[l], prm.b[l], skip_in ? pe_rows + kWidth : kWidth, kWidth, act,
-                skip_in ? 0 : pe_rows, pe_rows);
+    tc_layer<kWidth / 2, true>(ring, act, skip_in ? 0 : lay.pe_pad,
+                               skip_in ? lay.pe_pad + kWidth : kWidth, lay.pe_pad,
+                               bias + l * kWidth);
   }
+  __syncthreads();  // the trunk's output is written
 
-  // alpha from the trunk, before the feature head writes over it.
+  // alpha from the trunk, before the feature head writes over it (its
+  // barrier comes after these reads).
   if (threadIdx.x < kTile) {
     const int p = threadIdx.x;
-    const float* wa = prm.w[kAlpha];
-    float a = 0.f;
-    for (int k = 0; k < kWidth; ++k) a = fmaf(act[(pe_rows + k) * kStride + p], __ldg(wa + k), a);
+    const float* h = act + lay.pe_pad * kStride + p;
+    const float* wa = w + lay.alpha_w;
+    float s[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int k = 0; k < kWidth; k += 4) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[j] = fmaf(h[(k + j) * kStride], __ldg(wa + k + j), s[j]);
+    }
     const int64_t point = tile0 + p;
-    if (point < n_points) out[point * 4 + 3] = a + __ldg(prm.b[kAlpha]);
+    if (point < n_points) out[point * 4 + 3] = ((s[0] + s[1]) + (s[2] + s[3])) + __ldg(bias + kBiasAlpha);
   }
-  dense<false>(prm.w[kFeature], prm.b[kFeature], kWidth, kWidth, act, pe_rows, 0);
+  tc_layer<kWidth / 2, false>(ring, act, lay.pe_pad, kWidth, 0, bias + kBiasFeature);
 
-  // ve of each point's ray into rows [kWidth, kWidth + ve_rows).
+  // ve of each point's ray into rows [kWidth, kWidth + ve_rows), zero rows up
+  // to ve_pad: every warp is past the feature layer's reads of those rows.
   for (int t = threadIdx.x; t < 3 * kTile; t += kThreads) {
     const int p = t / 3, d = t % 3;
     const int64_t point = tile0 + p;
     const float x = point < n_points ? viewdirs[(point / n_samples) * 3 + d] : 0.f;
     encode(x, d, p, n_freqs_view, kWidth, act);
   }
-  __syncthreads();
+  for (int t = threadIdx.x; t < (lay.ve_pad - lay.ve_rows) * kTile; t += kThreads) {
+    act[(kWidth + lay.ve_rows + t / kTile) * kStride + t % kTile] = 0.f;
+  }
 
-  dense<true>(prm.w[kViews], prm.b[kViews], kWidth + ve_rows, kViewsWidth, act, 0, 0);
+  tc_layer<kViewsWidth / 2, true>(ring, act, 0, lay.views_k, 0, bias + kBiasViews);
+  __syncthreads();  // the views head's output is written
 
   // rgb: thread t takes output t / kTile of point t % kTile.
-  if (threadIdx.x < 3 * kTile) {
-    const int p = threadIdx.x % kTile, c = threadIdx.x / kTile;
-    const float* wr = prm.w[kRgb];
-    float r = 0.f;
-    for (int k = 0; k < kViewsWidth; ++k) r = fmaf(act[k * kStride + p], __ldg(wr + k * 3 + c), r);
+  for (int t = threadIdx.x; t < 3 * kTile; t += kThreads) {
+    const int p = t % kTile, c = t / kTile;
+    const float* hv = act + p;
+    const float* wr = w + lay.rgb_w + c;  // (128, 3) row-major
+    float s[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int k = 0; k < kViewsWidth; k += 4) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[j] = fmaf(hv[(k + j) * kStride], __ldg(wr + (k + j) * 3), s[j]);
+    }
     const int64_t point = tile0 + p;
-    if (point < n_points) out[point * 4 + c] = r + __ldg(prm.b[kRgb] + c);
+    if (point < n_points) out[point * 4 + c] = ((s[0] + s[1]) + (s[2] + s[3])) + __ldg(bias + kBiasRgb + c);
   }
+}
+
+template <int kSliceK, int kStages>
+int launch(const float* pts, const float* viewdirs, const float* weights, float* out,
+           long long n_points, int n_samples, int n_freqs_pos, int n_freqs_view,
+           const Layout& lay, cudaStream_t stream) {
+  const size_t smem = act_bytes(lay) + ring_bytes(kSliceK, kStages);
+  if (smem > kDefaultSmem) {
+    const cudaError_t err = cudaFuncSetAttribute(fused_query_field_kernel<kSliceK, kStages>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const long long blocks = (n_points + kTile - 1) / kTile;
+  fused_query_field_kernel<kSliceK, kStages>
+      <<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
+          pts, viewdirs, weights, lay, out, n_points, n_samples, n_freqs_pos, n_freqs_view);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
+// The dynamic shared memory a block of the kernel takes at these frequency
+// counts (bytes).
+extern "C" long long scnerf_fused_query_field_smem(int n_freqs_pos, int n_freqs_view) {
+  return static_cast<long long>(shared_bytes(make_layout(n_freqs_pos, n_freqs_view)));
+}
+
 // pts (n_points, 3) with n_points = n_rays * n_samples, viewdirs (n_rays, 3)
-// and out (n_points, 4): float32, contiguous, on the current device. params
-// is a host array of 24 device pointers, each weight (in, out) and bias
-// (out,) float32 contiguous: w0, b0, ..., w7, b7 of the trunk, then w, b of
-// feature, alpha, views, rgb. 0 <= n_freqs_pos, n_freqs_view <= 16. Launch
-// on `stream`; return cudaGetLastError() (or the error that kept it from
-// launching).
+// and out (n_points, 4): float32, contiguous, on the current device. weights
+// is mlp_cuda.py:pack_weights's buffer for these frequency counts, 16-byte
+// aligned. 0 <= n_freqs_pos, n_freqs_view <= 16. Launch on `stream`; return
+// cudaGetLastError() (or the error that kept it from launching).
 extern "C" int scnerf_fused_query_field(const float* pts, const float* viewdirs,
-                                        const float* const* params, float* out,
-                                        long long n_points, int n_samples,
-                                        int n_freqs_pos, int n_freqs_view,
+                                        const float* weights, float* out, long long n_points,
+                                        int n_samples, int n_freqs_pos, int n_freqs_view,
                                         cudaStream_t stream) {
   if (n_points == 0) return static_cast<int>(cudaSuccess);
   if (n_freqs_pos < 0 || n_freqs_pos > kMaxFreqs || n_freqs_view < 0 ||
       n_freqs_view > kMaxFreqs || n_samples <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  Params prm;
-  for (int l = 0; l < kLayers; ++l) {
-    prm.w[l] = params[2 * l];
-    prm.b[l] = params[2 * l + 1];
+  if (reinterpret_cast<uintptr_t>(weights) % 16 != 0) {
+    return static_cast<int>(cudaErrorMisalignedAddress);
   }
-  const int pe_rows = 3 + 6 * n_freqs_pos;
-  const int ve_rows = 3 + 6 * n_freqs_view;
-  const int rows = kWidth + (pe_rows > ve_rows ? pe_rows : ve_rows);
-  const size_t smem = static_cast<size_t>(rows) * kStride * sizeof(float);
-  if (smem > kDefaultSmem) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        fused_query_field_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
+  const Layout lay = make_layout(n_freqs_pos, n_freqs_view);
+  if (deep_slices(lay)) {
+    return launch<32, 2>(pts, viewdirs, weights, out, n_points, n_samples, n_freqs_pos,
+                         n_freqs_view, lay, stream);
   }
-  const long long blocks = (n_points + kTile - 1) / kTile;
-  fused_query_field_kernel<<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
-      pts, viewdirs, prm, out, n_points, n_samples, n_freqs_pos, n_freqs_view);
-  return static_cast<int>(cudaGetLastError());
+  return launch<16, 3>(pts, viewdirs, weights, out, n_points, n_samples, n_freqs_pos,
+                       n_freqs_view, lay, stream);
 }

@@ -20,15 +20,16 @@
 // but the search reads log2(N) entries where the count reads all N, and the
 // wrapper admits rows up to what one block's shared memory holds (57,344
 // floats). Lanes of a warp differ by at most one step, so the search hardly
-// diverges. Several warps share a block while their rows fit; the TPU's
-// row blocks in VMEM do not carry over.
+// diverges. Up to 32 warps share a block while their rows fit (at the
+// resamplers' shapes 1,024-thread blocks finish sooner than 256-thread ones);
+// the TPU's row blocks in VMEM do not carry over.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kMaxWarpsPerBlock = 8;
+constexpr int kMaxWarpsPerBlock = 32;
 constexpr size_t kMaxSmem = 232448;  // what one block may use on sm_90
 constexpr size_t kDefaultSmem = 48 * 1024;
 

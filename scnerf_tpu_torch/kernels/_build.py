@@ -6,7 +6,10 @@ repository root, named by a hash of the source and the flags: a changed
 source builds anew, an unchanged one loads the library already built. The
 compiler's report (``-Xptxas -v``: registers, shared memory, spills) is kept
 beside the library as ``<name>.log``. A missing ``nvcc`` or a failed build
-raises.
+raises. :func:`launch` is the wrappers' one way to call a kernel's entry on
+the current stream. The libraries are loaded as ``ctypes.PyDLL``: their
+entries only enqueue work and return, so they keep the GIL rather than
+release and take it back around a call of a few microseconds.
 """
 from __future__ import annotations
 
@@ -17,6 +20,8 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+
+import torch
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -65,6 +70,24 @@ def build(name: str) -> Path:
 
 
 @functools.cache
-def load(name: str) -> ctypes.CDLL:
+def load(name: str) -> ctypes.PyDLL:
     """Build (if needed) and load ``csrc/<name>.cu``'s library, once per process."""
-    return ctypes.CDLL(str(build(name)))
+    return ctypes.PyDLL(str(build(name)))
+
+
+# PyTorch's own accessors of the current device and of a device's current
+# stream as a raw handle (absent from builds without CUDA, where nothing
+# launches).
+_current_device = getattr(torch._C, "_cuda_getDevice", None)
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def launch(entry, device_index: int, *args) -> int:
+    """``entry(*args, stream)``, ``stream`` the raw handle of card
+    ``device_index``'s current stream, read without building a
+    ``torch.cuda.Stream``; the card is made current for the call only when
+    it is not already. Returns the entry's status (0 or a CUDA error)."""
+    if device_index == _current_device():
+        return entry(*args, _raw_stream(device_index))
+    with torch.cuda.device(device_index):
+        return entry(*args, _raw_stream(device_index))

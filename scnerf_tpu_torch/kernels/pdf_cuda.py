@@ -25,6 +25,7 @@ import functools
 import torch
 from torch.autograd.function import once_differentiable
 
+from scnerf_tpu_torch.kernels import _build
 from scnerf_tpu_torch.sampling.pdf import bracket, inverse_cdf, pdf_eps, sample_pdf
 
 MAX_BINS = 1024
@@ -41,8 +42,6 @@ diff_launches = 0
 def _entry(name: str, n_pointers: int):
     """The C entry ``name`` of ``csrc/sample_pdf.cu``: ``n_pointers`` device
     pointers, then n_rays, n_bins, n_samples and the stream."""
-    from scnerf_tpu_torch.kernels import _build
-
     fn = getattr(_build.load("sample_pdf"), name)
     fn.argtypes = [ctypes.c_void_p] * n_pointers + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -109,12 +108,8 @@ def sample_pdf_core(bins: torch.Tensor, weights: torch.Tensor, u: torch.Tensor) 
     device = bins.device
     n, b = bins.shape
     out = torch.empty(u.shape, dtype=torch.float32, device=device)
-    fn = _entry("scnerf_sample_pdf", 4)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(bins.data_ptr(), weights.data_ptr(), u.data_ptr(), out.data_ptr(),
-                 n, b, u.shape[1], stream)
-    _raise_on(err)
+    _raise_on(_build.launch(_entry("scnerf_sample_pdf", 4), bins.get_device(), bins.data_ptr(),
+                            weights.data_ptr(), u.data_ptr(), out.data_ptr(), n, b, u.shape[1]))
     launches += 1
     return out
 
@@ -143,13 +138,10 @@ def sample_pdf_fwd(bins: torch.Tensor, weights: torch.Tensor, u: torch.Tensor,
     out = torch.empty(u.shape, dtype=torch.float32, device=device)
     inds = torch.empty(u.shape, dtype=torch.int32, device=device)
     cdf = torch.empty((n, b), dtype=torch.float32, device=device) if with_cdf else None
-    fn = _entry(f"scnerf_sample_pdf_fwd_{variant}", 6)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(bins.data_ptr(), weights.data_ptr(), u.data_ptr(), out.data_ptr(),
-                 inds.data_ptr(), cdf.data_ptr() if with_cdf else None,
-                 n, b, u.shape[1], stream)
-    _raise_on(err)
+    _raise_on(_build.launch(_entry(f"scnerf_sample_pdf_fwd_{variant}", 6), bins.get_device(),
+                            bins.data_ptr(), weights.data_ptr(), u.data_ptr(), out.data_ptr(),
+                            inds.data_ptr(), cdf.data_ptr() if with_cdf else None,
+                            n, b, u.shape[1]))
     diff_launches += 1
     return out, inds, cdf
 

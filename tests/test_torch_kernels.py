@@ -8,6 +8,7 @@ and K2's gradients; they skip without one. This file needs no JAX, so the card's
 ``python -m pytest --noconftest tests/test_torch_kernels.py``.
 """
 import inspect
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -286,6 +287,32 @@ class TestK3CpuRoute:
             assert mlp_cuda.fused_query_field(params, cfg, pts, vd).shape == (2, 3, 4)
 
 
+def _cpu_calls():
+    """One call of each kernel's wrapper on CPU tensors."""
+    bins, weights, u = _inputs(8, 5, 4, det=True)
+    a, v = _sorted_rows(4, 9, 5)
+    cfg = nerf.NeRFConfig()
+    params, pts, vd = _field_inputs(2, 3, cfg)
+    return {
+        "K1": lambda: pdf_cuda.sample_pdf_core(bins, weights, u),
+        "K2": lambda: pdf_cuda.sample_pdf_diff(bins, weights, u, "nerfpp"),
+        "K3": lambda: mlp_cuda.fused_query_field(params, cfg, pts, vd),
+        "K4": lambda: searchsorted_cuda.searchsorted_cuda(a, v, "right"),
+    }
+
+
+@pytest.mark.parametrize("kernel", ["K1", "K2", "K3", "K4"])
+def test_cpu_tensors_never_reach_the_launch_helper(kernel, monkeypatch):
+    """The shared host launch path (_build.launch: the raw stream, the
+    device guard) is the card's alone; CPU tensors take the twin first."""
+    def refuse(*args):
+        raise AssertionError("the launch helper was called for CPU tensors")
+
+    monkeypatch.setattr(_build, "launch", refuse)
+    out = _cpu_calls()[kernel]()
+    assert out.device.type == "cpu"
+
+
 def test_package_imports_no_jax():
     """Every module of the port, and chip_smoke.py, imports in a fresh
     interpreter without pulling in jax or the JAX package."""
@@ -435,6 +462,32 @@ class TestK4OnCard:
         with pytest.raises(ValueError, match=str(searchsorted_cuda.MAX_ROW)):
             searchsorted_cuda.searchsorted_cuda(a, v)
 
+    def test_runs_on_the_current_stream(self, cuda):
+        """Launched on a side stream behind a long sleep and a copy that
+        makes the rows valid: run on any other stream, it would read the
+        zeros before the copy."""
+        a, v = _sorted_rows(8192, 63, 64, device=cuda)
+        rows = torch.zeros_like(a)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            torch.cuda._sleep(200_000_000)
+            rows.copy_(a)
+            got = searchsorted_cuda.searchsorted_cuda(rows, v, "right")
+        side.synchronize()
+        assert torch.equal(got, searchsorted(a, v, "right"))
+
+    def test_another_card_current(self, cuda):
+        """Tensors on card 0 while card 1 is current: the wrapper makes card
+        0 current for the launch."""
+        if torch.cuda.device_count() < 2:
+            pytest.skip("needs two cards")
+        a, v = _sorted_rows(1027, 63, 100, device="cuda:0")
+        with torch.cuda.device(1):
+            got = searchsorted_cuda.searchsorted_cuda(a, v, "left")
+        torch.cuda.synchronize(0)
+        assert torch.equal(got, searchsorted(a, v, "left"))
+
     def test_rejects_on_card(self, cuda):
         a, v = _sorted_rows(8, 9, 6, device=cuda)
         with pytest.raises(ValueError, match="contiguous"):
@@ -444,9 +497,9 @@ class TestK4OnCard:
 
 
 def assert_field_close(got, want):
-    """Summation order over K <= 319 in each of nine layers: median |err|
-    under 1e-5, max under 2e-4 (tests/test_kernels.py's tolerance for the
-    TPU kernel)."""
+    """3xTF32 products (about 2^-22 of each left out) and another summation
+    order over K <= 320 in each of ten layers: median |err| under 1e-5, max
+    under 2e-4 (tests/test_kernels.py's tolerance for the TPU kernel)."""
     err = (got - want).abs()
     assert float(err.median()) < 1e-5
     assert float(err.max()) < 2e-4
@@ -456,6 +509,7 @@ def assert_field_close(got, want):
 class TestK3OnCard:
     @pytest.mark.parametrize("n,s,multires,multires_views", [
         (64, 64, 10, 4), (1027, 33, 10, 4), (1, 1, 10, 4), (37, 19, 6, 2),
+        (37, 19, 0, 0), (37, 19, 16, 16), (5, 7, 10, 4),
     ])
     def test_matches_plain_twin(self, cuda, n, s, multires, multires_views):
         """The twin in full float32 (TF32 off) on the same card."""
@@ -481,6 +535,14 @@ class TestK3OnCard:
             want = mlp_cuda.fused_query_field_plain(params, cfg, pts, vd)
         torch.cuda.synchronize()
         assert_field_close(got, want)
+
+    def test_ptxas_reports_no_spills(self, cuda):
+        """The build's -Xptxas -v report: the kernel's registers hold its
+        accumulators and fragments, nothing goes to local memory."""
+        _build.load("fused_mlp")
+        report = (_build.BUILD_DIR / "fused_mlp.log").read_text()
+        spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", report)
+        assert spills and all(st == "0" and ld == "0" for st, ld in spills), report
 
     def test_rejects_on_card(self, cuda):
         cfg = nerf.NeRFConfig()
