@@ -7,13 +7,24 @@ Needs one CUDA card and the CUDA toolkit (``nvcc``); imports neither JAX nor
 the JAX package. Phases, each of which exits non-zero when it fails:
 
 1. The card's name and power limit, the versions, and the kernels' build
-   from ``scnerf_tpu_torch/csrc`` (timed).
+   from ``scnerf_tpu_torch/csrc`` (timed; one ``nvcc`` per library, all
+   started together): K3's and K4's ctypes libraries, and K1's and K2's
+   operator library (``sample_pdf.cu`` with ``sample_pdf_op.cpp``, against
+   torch's headers). Each kernel's host route (registered operator or
+   ctypes) and the path of the library it loaded.
 2. K1, the inverse-CDF CUDA kernel, against its plain PyTorch twin on the
    card at the serving shapes (8192 rays; 63, 62 and 64 bins; 64 samples;
    deterministic and random u): median |err| < 1e-6, under 0.1% of samples
    off by more than 1e-4 (boundary flips), every output within the bins
    (1e-5 slack). Time per call of both, from CUDA events around 50
-   back-to-back calls (median of 5).
+   back-to-back calls (median of 5), under one ``inference_mode`` block as
+   the serving path calls it; at the serving shape also K1 and
+   ``torch.searchsorted`` on the same CDF rows and queries in turns, by
+   events (11 turns) and host-only (as phase 8). On each input, the kernel's
+   search counts against compare-and-count on its own CDF (the search of
+   the kernel before the binary search): they must agree on every row whose
+   CDF does not decrease; the shares of rows whose CDF decreases somewhere
+   (the scan's rounding) and of samples whose count differs are printed.
 3. The serving slice at full width: the fern model (NeRF 8x256, skip at 4,
    viewdirs, multires 10/4, 64+64 samples) with seeded random weights, the
    learnable OpenGL camera at 756x1008 with 10-px noise grids, the NDC warp
@@ -30,7 +41,10 @@ the JAX package. Phases, each of which exits non-zero when it fails:
    sizes, with empty rays and empty bins; values by phase 2's criterion;
    gradients into bins, weights and u under a random cotangent against the
    twin's autograd (under 0.2% of entries off by more than 1e-4 of the
-   largest); time per call of both, as in phase 2.
+   largest); the counts against compare-and-count as in phase 2; time per call of both, as in phase 2, inside one
+   ``inference_mode`` block around the whole timed run, as
+   ``render_chunked_nerfpp`` calls it (where the autograd function is not
+   entered).
 6. The NeRF++ serving slice at full width: the Tanks&Temples Truck model
    (fg and bg MLPNets 8x256, skip at 4, 10/4 frequencies, cascade 64,128)
    with seeded random weights, the learnable OpenCV camera (pixel offset
@@ -110,7 +124,8 @@ PP_RAGGED = ((1, 2, 1), (5, 17, 33), (1027, 63, 100))
 PP_PIXEL_REQUESTS = (1000, 65536)
 PP_CPU_RAYS = 512
 
-SOURCES = ("sample_pdf", "searchsorted", "fused_mlp")
+SOURCES = ("searchsorted", "fused_mlp")  # K4 and K3, through ctypes
+OPS_SOURCES = ("sample_pdf",)  # K1 and K2, registered operators
 # K4: the resamplers' (rows, CDF entries, queries), ragged shapes, ties.
 SEARCH_SHAPES = ((BATCH, 63, 64), (PP_BATCH, 63, 128))
 SEARCH_RAGGED = ((1, 1, 1), (5, 17, 33), (1027, 200, 100))
@@ -235,22 +250,76 @@ def phase_kernels(dev):
             flips = float((err > 1e-4).float().mean())
             lo = float(got.min()) >= float(bins.min()) - 1e-5
             hi = float(got.max()) <= float(bins.max()) + 1e-5
-            ms = per_call_ms(lambda: pdf_cuda.sample_pdf_core(bins, weights, u))
-            plain_ms = per_call_ms(lambda: pdf_cuda.sample_pdf_plain(bins, weights, u))
+            kernel = lambda: pdf_cuda.sample_pdf_core(bins, weights, u)  # noqa: E731
+            with torch.inference_mode():  # as the serving path calls it
+                ms = per_call_ms(kernel)
+                plain_ms = per_call_ms(lambda: pdf_cuda.sample_pdf_plain(bins, weights, u))
+            rows, samples = against_compare_and_count(bins, weights, u, "nerf",
+                                                      f"K1 at {(n, b, s, det)}")
             print(f"  bins ({n},{b}) u ({n},{s}) det={det}: median|err|={med:.3e} "
                   f"max|err|={float(err.max()):.3e} share>1e-4={flips:.2e} "
-                  f"in_bins={lo and hi} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f}")
+                  f"in_bins={lo and hi} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f}; "
+                  f"CDF decreasing in {rows:.3e} of rows, count off compare-and-count "
+                  f"in {samples:.3e} of samples")
             require(med < 1e-6, f"K1 median error {med} at {(n, b, s, det)}")
             require(flips < 1e-3, f"K1 boundary-flip share {flips} at {(n, b, s, det)}")
             require(lo and hi, f"K1 output outside the bins at {(n, b, s, det)}")
             if (b, det) == (63, True):  # the serving path's shape
                 # Reads bins, weights and u, writes the depths; per sample a
-                # count over the B CDF entries and a lerp.
+                # binary search over the B CDF entries and a lerp.
                 record = dict(max_abs_err=float(err.max()), ms=ms, plain_ms=plain_ms,
+                              decreasing_cdf_rows=rows, off_compare_and_count=samples,
                               **bound(4 * (n * b + n * (b - 1) + 2 * n * s),
-                                      n * s * (b + 6) + 3 * n * (b - 1)),
-                              library_ms=None)
+                                      n * s * (math.ceil(math.log2(b + 1)) + 6)
+                                      + 3 * n * (b - 1)),
+                              library_ms=None,
+                              **beside_searchsorted("K1", kernel, bins, weights, u, "nerf"))
     return record
+
+
+def against_compare_and_count(bins, weights, u, variant, what) -> tuple[float, float]:
+    """The kernel's search counts against compare-and-count on the kernel's
+    own CDF (the search PR 4's kernel did; the CDF and the lerp are the
+    same, so a count that agrees gives the same depth, bit for bit). The
+    binary search agrees wherever the row's CDF does not decrease; the
+    shuffle scan can invert two neighbours by an ulp. Fails if a count
+    differs on a row whose CDF does not decrease. Returns the share of rows
+    whose CDF decreases somewhere and the share of samples whose count
+    differs."""
+    from scnerf_tpu_torch.kernels import pdf_cuda
+
+    with torch.inference_mode():
+        _, inds, cdf = pdf_cuda.sample_pdf_fwd(bins, weights, u, variant, with_cdf=True)
+        searched = cdf[:, :-1] if variant == "nerfpp" else cdf
+        count = (u[:, :, None] >= searched[:, None, :]).sum(-1, dtype=torch.int32)
+        decreasing = (cdf.diff(dim=-1) < 0).any(-1)
+        differs = inds != count
+    require(not bool(differs[~decreasing].any()),
+            f"{what}: a count differs from compare-and-count on a non-decreasing CDF")
+    return float(decreasing.float().mean()), float(differs.float().mean())
+
+
+def beside_searchsorted(label, kernel, bins, weights, u, variant) -> dict:
+    """``kernel`` and ``torch.searchsorted`` of ``u`` in the rows of the CDF
+    it searches, timed in turns under one ``inference_mode`` block: by CUDA
+    events and host-only. The search is the part of the work one PyTorch
+    call does; it is a yardstick of the host's cost per call, not of the
+    function (``library_ms`` stays null)."""
+    from scnerf_tpu_torch.sampling.pdf import inverse_cdf
+
+    cdf = inverse_cdf(bins, weights, u, variant)[2]
+    searched = cdf[:, :-1].contiguous() if variant == "nerfpp" else cdf
+    fns = {"kernel": kernel,
+           "searchsorted": lambda: torch.searchsorted(searched, u, right=True, out_int32=True)}
+    with torch.inference_mode():
+        by_events = in_turns(fns, TIMING_CALLS, K4_TIMING_TURNS)
+        host = in_turns(fns, HOST_CALLS, 3, host_only=True)
+    print(f"  {label} beside torch.searchsorted in turns: events ms {by_events['kernel']:.4f} "
+          f"against {by_events['searchsorted']:.4f}; host-only ms per call over {HOST_CALLS}: "
+          f"{host['kernel']:.4f} against {host['searchsorted']:.4f} "
+          f"({host['kernel'] / host['searchsorted']:.2f}x)")
+    return {"turns_ms": by_events["kernel"], "searchsorted_ms": by_events["searchsorted"],
+            "host_ms": host["kernel"], "searchsorted_host_ms": host["searchsorted"]}
 
 
 def make_slice(dev):
@@ -443,17 +512,25 @@ def phase_k2(dev):
                 frac = float(((gk - gp).abs() / (gp.abs().max() + 1e-8) > 1e-4).float().mean())
                 off.append(f"{name} {frac:.2e}")
                 require(frac < 2e-3, f"{what}: gradient into {name}, {frac} of entries off")
-            ms = per_call_ms(lambda: kernel(bins, weights, u))
-            plain_ms = per_call_ms(lambda: plain(bins, weights, u))
+            served = lambda: pdf_cuda.sample_pdf_diff(bins, weights, u, "nerfpp")  # noqa: E731
+            with torch.inference_mode():  # one block around the run, as the renderer's
+                ms = per_call_ms(served)
+                plain_ms = per_call_ms(
+                    lambda: sample_pdf(None, bins, weights, s, u=u, variant="nerfpp"))
+            rows, samples = against_compare_and_count(bins, weights, u, "nerfpp", what)
             print(f"  bins ({n},{b}) u ({n},{s}) det={det}: median|err|={med:.3e} "
                   f"max|err|={mx:.3e} share>1e-4={flips:.2e} grads off: {', '.join(off)}; "
-                  f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f}")
+                  f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f}; CDF decreasing in "
+                  f"{rows:.3e} of rows, count off compare-and-count in {samples:.3e} of samples")
             if (b, det) == (63, True):  # the serving path's shape
                 # As K1, and the int32 search counts written besides.
                 record = dict(max_abs_err=mx, ms=ms, plain_ms=plain_ms,
+                              decreasing_cdf_rows=rows, off_compare_and_count=samples,
                               **bound(4 * (n * b + n * (b - 1) + 3 * n * s),
-                                      n * s * (b + 6) + 3 * n * (b - 1)),
-                              library_ms=None)
+                                      n * s * (math.ceil(math.log2(b)) + 6)
+                                      + 3 * n * (b - 1)),
+                              library_ms=None,
+                              **beside_searchsorted("K2", served, bins, weights, u, "nerfpp"))
     for n, b, s in PP_RAGGED:
         bins, weights = resample_inputs(rng, n, b, dev)
         u = pdf_uniforms(gen, n, s, False, device=dev)
@@ -787,15 +864,27 @@ def main() -> int:
     print(f"  python {sys.version.split()[0]}, torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(SOURCES)) as pool:  # one nvcc each
-        libs = list(pool.map(_build.build, SOURCES))
+    with concurrent.futures.ThreadPoolExecutor(len(SOURCES) + len(OPS_SOURCES)) as pool:
+        builds = ([pool.submit(_build.build, name) for name in SOURCES]  # one nvcc each
+                  + [pool.submit(_build.build_ops, name) for name in OPS_SOURCES])
+        libs = [b.result() for b in builds]
     for name in SOURCES:
         _build.load(name)
+    for name in OPS_SOURCES:
+        _build.load_ops(name)
     print(f"  built {', '.join(lib.name for lib in libs)} in {time.perf_counter() - t0:.2f} s")
-    for name in SOURCES:
+    routes = {"K1, K2": ("registered operators torch.ops.scnerf_tpu_torch.sample_pdf[_fwd]",
+                         _build.ops_library_path("sample_pdf")),
+              "K3": ("ctypes", _build.library_path("fused_mlp")),
+              "K4": ("ctypes", _build.library_path("searchsorted"))}
+    for kernels, (route, lib) in routes.items():
+        print(f"  {kernels}: {route}, {lib}")
+    for name in (*SOURCES, *(f"{name}_op" for name in OPS_SOURCES)):
         log = _build.BUILD_DIR / f"{name}.log"
-        if log.exists():
-            print("  " + log.read_text().strip().replace("\n", "\n  "))
+        if log.exists():  # ptxas's report; not the host compiler's warnings
+            lines = [line for line in log.read_text().splitlines()
+                     if line.startswith("ptxas") or "spill" in line]
+            print(f"  {name}: " + "\n  ".join(lines))
 
     record = phase_kernels(dev)
     slice_ = make_slice(dev)
@@ -817,6 +906,7 @@ def main() -> int:
     print(json.dumps({"kernels": [{
         "name": "sample_pdf",
         "route": "cuda",
+        "host_route": "operator",
         "source": "scnerf_tpu_torch/csrc/sample_pdf.cu",
         "replaces": "scnerf_tpu/kernels/pdf_pallas.py:66",
         "launches": launches,
@@ -824,6 +914,7 @@ def main() -> int:
     }, {
         "name": "sample_pdf_nerfpp",
         "route": "cuda",
+        "host_route": "operator",
         "source": "scnerf_tpu_torch/csrc/sample_pdf.cu",
         "replaces": "scnerf_tpu/kernels/pdf_pallas.py:194",
         "launches": pp_launches,
@@ -831,6 +922,7 @@ def main() -> int:
     }, {
         "name": "searchsorted",
         "route": "cuda",
+        "host_route": "ctypes",
         "source": "scnerf_tpu_torch/csrc/searchsorted.cu",
         "replaces": "scnerf_tpu/kernels/searchsorted_pallas.py:35",
         "launches": search_launches,
@@ -838,6 +930,7 @@ def main() -> int:
     }, {
         "name": "fused_query_field",
         "route": "cuda",
+        "host_route": "ctypes",
         "source": "scnerf_tpu_torch/csrc/fused_mlp.cu",
         "replaces": "scnerf_tpu/kernels/mlp_pallas.py:85",
         "launches": field_launches,

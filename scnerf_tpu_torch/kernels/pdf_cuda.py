@@ -12,14 +12,17 @@
   XLA ops: gathers, scatter-adds and a reverse cumsum.
 
 Both kernels are instantiations of one template in ``csrc/sample_pdf.cu``
-(one warp per ray; its header says what bounds it and how the design
-answers). The tensor's device decides the route: a CUDA tensor always goes
-to the kernel (injected ``u`` included) or raises, a CPU tensor takes the
-twin. There is no fallback from one to the other.
+(one warp per ray, a binary search over the CDF; its header says what bounds
+it and how the design answers), launched through registered PyTorch
+operators (``csrc/sample_pdf_op.cpp``: the checks, the outputs' allocation
+and the launch in C++, behind the dispatcher), built and loaded at first use
+by ``_build.load_ops``. The tensor's device decides the route: a CUDA tensor
+always goes to the operator (injected ``u`` included) or raises, a CPU tensor
+takes the twin after the same checks in Python. There is no fallback from
+one to the other.
 """
 from __future__ import annotations
 
-import ctypes
 import functools
 
 import torch
@@ -39,13 +42,12 @@ diff_launches = 0
 
 
 @functools.cache
-def _entry(name: str, n_pointers: int):
-    """The C entry ``name`` of ``csrc/sample_pdf.cu``: ``n_pointers`` device
-    pointers, then n_rays, n_bins, n_samples and the stream."""
-    fn = getattr(_build.load("sample_pdf"), name)
-    fn.argtypes = [ctypes.c_void_p] * n_pointers + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+def _ops():
+    """K1's and K2's registered operators (``csrc/sample_pdf_op.cpp``), their
+    library built and loaded at first use."""
+    _build.load_ops("sample_pdf")
+    ns = torch.ops.scnerf_tpu_torch
+    return ns.sample_pdf.default, ns.sample_pdf_fwd.default
 
 
 def sample_pdf_plain(bins: torch.Tensor, weights: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
@@ -53,7 +55,11 @@ def sample_pdf_plain(bins: torch.Tensor, weights: torch.Tensor, u: torch.Tensor)
     return sample_pdf(None, bins, weights, u.shape[-1], u=u, variant="nerf")
 
 
-def _check(bins: torch.Tensor, weights: torch.Tensor, u: torch.Tensor) -> None:
+def _check_off_card(name: str, bins: torch.Tensor, weights: torch.Tensor,
+                    u: torch.Tensor) -> None:
+    """The checks of a call whose ``bins`` is not on the card: what the
+    operator checks for CUDA tensors (``csrc/sample_pdf_op.cpp``), with the
+    same exception types; raises unless all three lie on the CPU."""
     if bins.ndim != 2 or weights.ndim != 2 or u.ndim != 2:
         raise ValueError(
             f"expected 2D bins, weights, u; got {tuple(bins.shape)}, "
@@ -64,29 +70,26 @@ def _check(bins: torch.Tensor, weights: torch.Tensor, u: torch.Tensor) -> None:
             f"shapes disagree: bins {tuple(bins.shape)} needs weights "
             f"{(n, b - 1)} and u ({n}, S); got {tuple(weights.shape)}, "
             f"{tuple(u.shape)}")
-    for name, x in (("bins", bins), ("weights", weights), ("u", u)):
+    for arg, x in (("bins", bins), ("weights", weights), ("u", u)):
         if x.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {x.dtype}")
+            raise TypeError(f"{arg} must be float32, got {x.dtype}")
     devices = {bins.device, weights.device, u.device}
     if len(devices) != 1:
         raise ValueError(f"bins, weights and u lie on different devices: {devices}")
+    if bins.device.type != "cpu":
+        raise ValueError(f"{name} runs on cpu or cuda, not {bins.device}")
 
 
-def _check_cuda(name: str, bins: torch.Tensor, weights: torch.Tensor, u: torch.Tensor) -> None:
-    """What the kernels take beyond :func:`_check`; raises on the rest."""
-    device = bins.device
-    if device.type != "cuda":
-        raise ValueError(f"{name} runs on cpu or cuda, not {device}")
-    if not 2 <= bins.shape[1] <= MAX_BINS:
-        raise ValueError(f"the kernel takes 2 <= B <= {MAX_BINS} bins, got {bins.shape[1]}")
-    for arg, x in (("bins", bins), ("weights", weights), ("u", u)):
-        if not x.is_contiguous():
-            raise ValueError(f"{arg} must be contiguous")
-
-
-def _raise_on(err: int) -> None:
-    if err != 0:
-        raise RuntimeError(f"sample_pdf kernel launch failed: CUDA error {err}")
+def _forward_only(name: str, bins: torch.Tensor, weights: torch.Tensor,
+                  u: torch.Tensor) -> None:
+    """K1 and K2's forward have no derivative on either device: refuse an
+    input that requires grad under grad mode, rather than return depths
+    whose backward passes nothing. :func:`sample_pdf_diff` is the
+    differentiable route."""
+    if torch.is_grad_enabled() and (bins.requires_grad or weights.requires_grad
+                                    or u.requires_grad):
+        raise ValueError(f"{name} is forward only; call it under torch.no_grad(), "
+                         "or call sample_pdf_diff for gradients")
 
 
 def sample_pdf_core(bins: torch.Tensor, weights: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
@@ -94,22 +97,20 @@ def sample_pdf_core(bins: torch.Tensor, weights: torch.Tensor, u: torch.Tensor) 
 
     Args:
       bins: ``(N, B)`` float32 bin edges.
-      weights: ``(N, B-1)`` float32 unnormalised weights.
+      weights: ``(N, B-1)`` float32 unnormalised weights, ``>= 0``.
       u: ``(N, S)`` float32 uniforms.
     Returns:
-      ``(N, S)`` depths. On CUDA: launched on the current stream, not
-      synchronised; inputs must be contiguous and ``2 <= B <= 1024``.
+      ``(N, S)`` depths. On CUDA: ``torch.ops.scnerf_tpu_torch.sample_pdf``,
+      launched on the current stream, not synchronised; inputs must be
+      contiguous and ``2 <= B <= 1024``. Forward only: an input that
+      requires grad under grad mode raises ``ValueError``.
     """
     global launches
-    _check(bins, weights, u)
-    if bins.device.type == "cpu":
+    _forward_only("sample_pdf_core", bins, weights, u)
+    if not bins.is_cuda:
+        _check_off_card("sample_pdf_core", bins, weights, u)
         return sample_pdf_plain(bins, weights, u)
-    _check_cuda("sample_pdf_core", bins, weights, u)
-    device = bins.device
-    n, b = bins.shape
-    out = torch.empty(u.shape, dtype=torch.float32, device=device)
-    _raise_on(_build.launch(_entry("scnerf_sample_pdf", 4), bins.get_device(), bins.data_ptr(),
-                            weights.data_ptr(), u.data_ptr(), out.data_ptr(), n, b, u.shape[1]))
+    out = _ops()[0](bins, weights, u)
     launches += 1
     return out
 
@@ -122,28 +123,21 @@ def sample_pdf_fwd(bins: torch.Tensor, weights: torch.Tensor, u: torch.Tensor,
     ``"nerfpp"``) and ``with_cdf``.
     Returns:
       ``(out (N, S) float32, inds (N, S) int32, cdf (N, B) float32 or
-      None)``; ``cdf`` only when ``with_cdf``. On CUDA: launched on the
-      current stream, not synchronised.
+      None)``; ``cdf`` only when ``with_cdf``. On CUDA:
+      ``torch.ops.scnerf_tpu_torch.sample_pdf_fwd``, launched on the current
+      stream, not synchronised. Forward only, as :func:`sample_pdf_core`.
     """
     global diff_launches
-    if variant not in VARIANTS:
-        raise ValueError(f"variant must be one of {VARIANTS}, got {variant!r}")
-    _check(bins, weights, u)
-    if bins.device.type == "cpu":
+    _forward_only("sample_pdf_fwd", bins, weights, u)
+    if not bins.is_cuda:
+        if variant not in VARIANTS:
+            raise ValueError(f"variant must be one of {VARIANTS}, got {variant!r}")
+        _check_off_card("sample_pdf_fwd", bins, weights, u)
         out, inds, cdf = inverse_cdf(bins, weights, u, variant)
         return out, inds, cdf if with_cdf else None
-    _check_cuda("sample_pdf_fwd", bins, weights, u)
-    device = bins.device
-    n, b = bins.shape
-    out = torch.empty(u.shape, dtype=torch.float32, device=device)
-    inds = torch.empty(u.shape, dtype=torch.int32, device=device)
-    cdf = torch.empty((n, b), dtype=torch.float32, device=device) if with_cdf else None
-    _raise_on(_build.launch(_entry(f"scnerf_sample_pdf_fwd_{variant}", 6), bins.get_device(),
-                            bins.data_ptr(), weights.data_ptr(), u.data_ptr(), out.data_ptr(),
-                            inds.data_ptr(), cdf.data_ptr() if with_cdf else None,
-                            n, b, u.shape[1]))
+    result = _ops()[1](bins, weights, u, variant, with_cdf)
     diff_launches += 1
-    return out, inds, cdf
+    return result
 
 
 def sample_pdf_diff_backward(g, bins, weights, u, inds, cdf, variant: str):
@@ -214,5 +208,10 @@ def sample_pdf_diff(bins: torch.Tensor, weights: torch.Tensor, u: torch.Tensor,
     """Differentiable inverse CDF: K2's forward (the plain twin on the CPU)
     and :func:`sample_pdf_diff_backward`. Values and gradients equal
     ``sampling/pdf.py:sample_pdf(..., u=u, variant=variant)`` up to the
-    rounding of the CDF. ``(N, S)`` depths."""
-    return _SamplePdfDiff.apply(bins, weights, u, variant)
+    rounding of the CDF. ``(N, S)`` depths. Where no gradient can be asked
+    for (grad mode off, as under ``inference_mode``, or no input requiring
+    grad) it calls the forward alone, without the autograd function."""
+    if torch.is_grad_enabled() and (bins.requires_grad or weights.requires_grad
+                                    or u.requires_grad):
+        return _SamplePdfDiff.apply(bins, weights, u, variant)
+    return sample_pdf_fwd(bins, weights, u, variant)[0]

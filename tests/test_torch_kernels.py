@@ -23,7 +23,7 @@ from scnerf_tpu_torch.camera import model as camera_model
 from scnerf_tpu_torch.camera import rays
 from scnerf_tpu_torch.fields import mlp, nerf, nerfpp
 from scnerf_tpu_torch.kernels import _build, mlp_cuda, pdf_cuda, searchsorted_cuda
-from scnerf_tpu_torch.sampling.pdf import inverse_cdf, pdf_uniforms, sample_pdf
+from scnerf_tpu_torch.sampling.pdf import bracket, inverse_cdf, pdf_uniforms, sample_pdf
 from scnerf_tpu_torch.sampling.searchsorted import searchsorted
 from scnerf_tpu_torch.serve import fp32_inference
 
@@ -87,6 +87,30 @@ class TestCpuRoute:
             pdf_cuda.sample_pdf_core(*bad(*_inputs(8, 5, 4, det=True)))
 
 
+def _forward_only_calls(device):
+    """K1's and K2's forward on one input that requires grad, by name."""
+    def call(which, grad_input):
+        inputs = list(_inputs(64, 17, 24, det=False, device=device))
+        inputs[grad_input].requires_grad_()
+        if which == "K1":
+            return pdf_cuda.sample_pdf_core(*inputs)
+        return pdf_cuda.sample_pdf_fwd(*inputs, "nerfpp")[0]
+    return call
+
+
+@pytest.mark.parametrize("grad_input", [0, 1, 2], ids=["bins", "weights", "u"])
+@pytest.mark.parametrize("which", ["K1", "K2"])
+def test_forward_only_on_cpu(which, grad_input):
+    """An input that requires grad under grad mode is refused on the CPU as
+    on the card (there no gradient would pass); under no_grad the call
+    runs and its depths leave the graph."""
+    call = _forward_only_calls("cpu")
+    with pytest.raises(ValueError, match="forward only"):
+        call(which, grad_input)
+    with torch.no_grad():
+        assert not call(which, grad_input).requires_grad
+
+
 def assert_grads_close(got, want):
     """tests/test_kernels.py's criterion: an entry is off when its error
     exceeds 1e-4 of the largest entry; under 0.2% may be (flips)."""
@@ -133,6 +157,49 @@ class TestK2CpuRoute:
             out = pdf_cuda.sample_pdf_diff(bins, weights, u)
         assert not out.requires_grad
 
+    @pytest.mark.parametrize("mode", ["no_grad", "inference_mode", "no_input_requires_grad"])
+    @pytest.mark.parametrize("variant", ["nerf", "nerfpp"])
+    def test_no_autograd_function_without_grad(self, mode, variant, monkeypatch):
+        """Where no gradient can be asked for, the forward runs alone: the
+        autograd function is never entered, and the depths are the twin's."""
+        def refuse(*args):
+            raise AssertionError("entered _SamplePdfDiff without a gradient to compute")
+
+        monkeypatch.setattr(pdf_cuda._SamplePdfDiff, "apply", refuse)
+        bins, weights, u = _inputs(64, 33, 24, det=False)
+        if mode != "no_input_requires_grad":
+            weights.requires_grad_()
+        context = {"no_grad": torch.no_grad, "inference_mode": torch.inference_mode,
+                   "no_input_requires_grad": torch.enable_grad}[mode]
+        with context():
+            got = pdf_cuda.sample_pdf_diff(bins, weights, u, variant)
+        assert not got.requires_grad
+        want = sample_pdf(None, bins, weights.detach(), 24, u=u, variant=variant)
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+    @pytest.mark.parametrize("variant", ["nerf", "nerfpp"])
+    def test_autograd_function_with_grad(self, variant, monkeypatch):
+        """With an input requiring grad under grad mode, the call goes
+        through the autograd function once, and its gradients are the
+        twin's autograd."""
+        calls = []
+        apply = pdf_cuda._SamplePdfDiff.apply
+
+        def counted(*args):
+            calls.append(args[-1])
+            return apply(*args)
+
+        monkeypatch.setattr(pdf_cuda._SamplePdfDiff, "apply", counted)
+        bins, weights, u = _inputs(128, 17, 20, det=True)
+        cot = torch.from_numpy(np.random.default_rng(2).normal(size=(128, 20)).astype(np.float32))
+        got = _k2_grads(lambda b, w, uu: pdf_cuda.sample_pdf_diff(b, w, uu, variant),
+                        bins, weights, u, cot)
+        assert calls == [variant]
+        want = _k2_grads(lambda b, w, uu: sample_pdf(None, b, w, 20, u=uu, variant=variant),
+                         bins, weights, u, cot)
+        for g, w in zip(got, want):
+            assert_grads_close(g, w)
+
     @pytest.mark.parametrize("bad,exc", [
         (lambda b, w, u: (b, w, u, "nerf++"), ValueError),
         (lambda b, w, u: (b.double(), w, u, "nerfpp"), TypeError),
@@ -159,6 +226,77 @@ class TestBuild:
         assert lib.name.startswith("libsample_pdf_") and lib.suffix == ".so"
         assert "build/" in (REPO / ".gitignore").read_text().split()
         assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+
+    def test_ops_library_named_by_both_sources_and_torch(self, tmp_path, monkeypatch):
+        """K1/K2's operator library: under build/kernels/, and named anew
+        when either source or torch's version changes."""
+        assert _build.ops_library_path("sample_pdf").parent == REPO / "build" / "kernels"
+        for suffix in (".cu", "_op.cpp"):
+            (tmp_path / f"sample_pdf{suffix}").write_bytes(
+                (_build.CSRC_DIR / f"sample_pdf{suffix}").read_bytes())
+        monkeypatch.setattr(_build, "CSRC_DIR", tmp_path)
+        names = [_build.ops_library_path("sample_pdf").name]
+        assert names[0].startswith("libsample_pdf_op_")
+        for suffix in (".cu", "_op.cpp"):
+            with open(tmp_path / f"sample_pdf{suffix}", "a") as f:
+                f.write("\n// changed\n")
+            names.append(_build.ops_library_path("sample_pdf").name)
+        monkeypatch.setattr(torch, "__version__", "0.0.0+other")
+        names.append(_build.ops_library_path("sample_pdf").name)
+        assert len(set(names)) == 4, names
+
+    def test_ops_build_command(self, tmp_path, monkeypatch):
+        """One nvcc command: both sources, sm_90a, torch's C++ ABI flag and
+        headers, torch's libraries with an rpath, the output under the build
+        directory; the library is then in place."""
+        commands = []
+
+        def run(cmd, **kwargs):
+            commands.append(cmd)
+            Path(cmd[cmd.index("-o") + 1]).write_bytes(b"")
+            return subprocess.CompletedProcess(cmd, 0, "ptxas info", "")
+
+        build_dir = tmp_path / "build" / "kernels"
+        monkeypatch.setattr(_build, "BUILD_DIR", build_dir)
+        monkeypatch.setattr(_build, "find_nvcc", lambda: "/toolkit/cuda/bin/nvcc")
+        monkeypatch.setattr(_build.subprocess, "run", run)
+        lib = _build.build_ops("sample_pdf")
+        (cmd,) = commands
+        assert cmd[0] == "/toolkit/cuda/bin/nvcc"
+        abi = [flag for flag in cmd if flag.startswith("-D_GLIBCXX_USE_CXX11_ABI=")]
+        assert abi == [f"-D_GLIBCXX_USE_CXX11_ABI={int(torch._C._GLIBCXX_USE_CXX11_ABI)}"]
+        assert "arch=compute_90a,code=sm_90a" in cmd and "-shared" in cmd
+        assert str(_build.CSRC_DIR / "sample_pdf.cu") in cmd
+        assert str(_build.CSRC_DIR / "sample_pdf_op.cpp") in cmd
+        assert "-I/toolkit/cuda/include" in cmd
+        from torch.utils import cpp_extension
+        for d in cpp_extension.include_paths():
+            assert f"-I{d}" in cmd
+        for d in cpp_extension.library_paths():
+            assert f"-L{d}" in cmd and f"-rpath,{d}" in cmd
+        assert set(_build.TORCH_LIBRARIES) <= set(cmd)
+        assert Path(cmd[cmd.index("-o") + 1]).parent == build_dir
+        assert lib == build_dir / _build.ops_library_path("sample_pdf").name and lib.exists()
+        assert (build_dir / "sample_pdf_op.log").read_text() == "ptxas info"
+        assert _build.build_ops("sample_pdf") == lib and len(commands) == 1  # built once
+
+    def test_failed_ops_build_raises(self, tmp_path, monkeypatch):
+        monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+        monkeypatch.setattr(_build, "find_nvcc", lambda: "/toolkit/cuda/bin/nvcc")
+        monkeypatch.setattr(_build.subprocess, "run", lambda cmd, **kwargs:
+                            subprocess.CompletedProcess(cmd, 2, "", "error: no such header"))
+        with pytest.raises(RuntimeError, match="no such header"):
+            _build.build_ops("sample_pdf")
+        assert not list(tmp_path.glob("*.so"))
+
+    def test_ops_build_without_nvcc_raises(self, tmp_path, monkeypatch):
+        import torch.utils.cpp_extension as cpp
+
+        monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+        monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+        monkeypatch.setattr(cpp, "CUDA_HOME", None)
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            _build.build_ops("sample_pdf")
 
     @pytest.mark.parametrize("name", ["searchsorted", "fused_mlp"])
     def test_new_sources_named_alike(self, name):
@@ -303,12 +441,15 @@ def _cpu_calls():
 
 @pytest.mark.parametrize("kernel", ["K1", "K2", "K3", "K4"])
 def test_cpu_tensors_never_reach_the_launch_helper(kernel, monkeypatch):
-    """The shared host launch path (_build.launch: the raw stream, the
-    device guard) is the card's alone; CPU tensors take the twin first."""
+    """The host launch paths (_build.launch: the raw stream, the device
+    guard; _build.load_ops: K1's and K2's operators) are the card's alone;
+    CPU tensors take the twin first."""
     def refuse(*args):
         raise AssertionError("the launch helper was called for CPU tensors")
 
     monkeypatch.setattr(_build, "launch", refuse)
+    monkeypatch.setattr(_build, "load_ops", refuse)
+    pdf_cuda._ops.cache_clear()
     out = _cpu_calls()[kernel]()
     assert out.device.type == "cpu"
 
@@ -341,7 +482,7 @@ def cuda():
 
 @pytest.mark.cuda
 class TestKernelOnCard:
-    @pytest.mark.parametrize("b", [63, 62, 64, 2, 200])
+    @pytest.mark.parametrize("b", [63, 62, 64, 2, 200, 1024])
     @pytest.mark.parametrize("det", [True, False])
     def test_matches_plain_twin(self, cuda, b, det):
         bins, weights, u = _inputs(8192, b, 64, det=det, device=cuda)
@@ -368,6 +509,71 @@ class TestKernelOnCard:
             pdf_cuda.sample_pdf_core(*big)
         with pytest.raises(ValueError, match="different devices"):
             pdf_cuda.sample_pdf_core(bins, weights, u.cpu())
+        with pytest.raises(ValueError, match="shapes disagree"):
+            pdf_cuda.sample_pdf_core(bins, weights[:, :-1].contiguous(), u)
+        with pytest.raises(ValueError, match="2D"):
+            pdf_cuda.sample_pdf_core(bins, weights, u[0])
+        with pytest.raises(TypeError, match="u must be float32"):
+            pdf_cuda.sample_pdf_core(bins, weights, u.double())
+
+    @pytest.mark.parametrize("fill", [0.0, 1.0])
+    def test_u_at_the_ends_and_empty_rows(self, cuda, fill):
+        """u = 0 and u = 1 everywhere, on rows of all-zero weights (the eps
+        makes them uniform) and on the usual rows."""
+        bins, weights, _ = _inputs(4096, 63, 64, det=True, device=cuda)
+        weights[:2048] = 0.0
+        u = torch.full((4096, 64), fill, device=cuda)
+        got = pdf_cuda.sample_pdf_core(bins, weights, u)
+        torch.cuda.synchronize()
+        assert_resample_close(got, pdf_cuda.sample_pdf_plain(bins, weights, u), bins)
+
+    def test_runs_on_the_current_stream(self, cuda):
+        """Launched on a side stream behind a long sleep and a copy that
+        makes the weights valid: run on any other stream, the operator would
+        read the zeros before the copy."""
+        bins, weights, u = _inputs(8192, 63, 64, det=False, device=cuda)
+        pending = torch.zeros_like(weights)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            torch.cuda._sleep(200_000_000)
+            pending.copy_(weights)
+            got = pdf_cuda.sample_pdf_core(bins, pending, u)
+        side.synchronize()
+        assert torch.equal(got, pdf_cuda.sample_pdf_core(bins, weights, u))
+
+    def test_another_card_current(self, cuda):
+        """Tensors on card 0 while card 1 is current: the operator's device
+        guard makes card 0 current for the launch."""
+        if torch.cuda.device_count() < 2:
+            pytest.skip("needs two cards")
+        bins, weights, u = _inputs(1027, 63, 100, det=False, device="cuda:0")
+        with torch.cuda.device(1):
+            got = pdf_cuda.sample_pdf_core(bins, weights, u)
+        torch.cuda.synchronize(0)
+        assert got.device == bins.device
+        assert_resample_close(got, pdf_cuda.sample_pdf_plain(bins, weights, u), bins)
+
+
+def _count_on(cdf, u, variant):
+    """Compare-and-count over the searched entries of ``cdf``: the TPU
+    kernel's way to the search counts."""
+    searched = cdf[:, :-1] if variant == "nerfpp" else cdf
+    return (u[:, :, None] >= searched[:, None, :]).sum(-1, dtype=torch.int32)
+
+
+def _lerp_from(bins, cdf, u, inds, variant):
+    """The depths from given counts and CDF, op for op as the kernel rounds
+    them (each op of the twin's inverse_cdf, on the kernel's CDF)."""
+    eps = 1e-6 if variant == "nerfpp" else 1e-5
+    below, above = bracket(inds, bins.shape[-1], variant)
+    cdf_b, cdf_a = torch.gather(cdf, -1, below), torch.gather(cdf, -1, above)
+    denom = cdf_a - cdf_b
+    denom = torch.where(denom < eps, torch.ones_like(denom), denom)
+    width = torch.gather(bins, -1, above) - torch.gather(bins, -1, below)
+    if variant == "nerfpp":
+        width = width + eps
+    return torch.gather(bins, -1, below) + (u - cdf_b) / denom * width
 
 
 @pytest.mark.cuda
@@ -395,6 +601,135 @@ class TestK2OnCard:
         last = (torch.maximum(inds, want_inds) - 1).clamp(0, b - 1).long()
         for j in (first, last):  # the CDF is sorted: the ends bound the rest
             assert ((u - torch.gather(want_cdf, -1, j)).abs()[off] < 1e-6).all()
+
+    @pytest.mark.parametrize("variant", ["nerf", "nerfpp"])
+    def test_ties_on_the_cdf(self, cuda, variant):
+        """u set exactly to CDF entries, flat runs from zero weights
+        included. On the kernel's own CDF the binary search's counts are the
+        compare-and-count's on every row whose CDF is non-decreasing, and the
+        depths are what the counts give, bit for bit; on a row where the
+        scan's rounding inverted two neighbours the count still brackets u
+        (cdf[k-1] <= u < cdf[k]). On the twin's CDF (another summation
+        order) the counts are the twin's except where u lies within 1e-6 of
+        an entry one counted and the other did not."""
+        n, b, s = 4096, 63, 128
+        bins, weights, u = _inputs(n, b, s, det=False, device=cuda)
+        weights[: n // 2, 20:40] = 0.0  # long flat runs
+        cdf = pdf_cuda.sample_pdf_fwd(bins, weights, u, variant, with_cdf=True)[2]
+        gen = torch.Generator(device=cuda).manual_seed(3)
+        picks = torch.randint(0, b, (n, s), generator=gen, device=cuda)
+        u = torch.gather(cdf, -1, picks).contiguous()
+        out, inds, cdf_again = pdf_cuda.sample_pdf_fwd(bins, weights, u, variant, with_cdf=True)
+        torch.cuda.synchronize()
+        assert torch.equal(cdf, cdf_again)
+        monotone = (cdf.diff(dim=-1) >= 0).all(-1)
+        assert monotone.float().mean() > 0.99
+        count = _count_on(cdf, u, variant)
+        assert torch.equal(inds[monotone], count[monotone])
+        n_search = b - 1 if variant == "nerfpp" else b
+        ext = torch.cat([torch.full((n, 1), -1.0, device=cuda), cdf[:, :n_search],
+                         torch.full((n, 1), 2.0, device=cuda)], -1)
+        low = torch.gather(ext, -1, inds.long())
+        high = torch.gather(ext, -1, inds.long() + 1)
+        assert bool(((low <= u) & (u < high)).all())
+        assert torch.equal(out, _lerp_from(bins, cdf, u, inds, variant))
+
+        twin_out, twin_inds, twin_cdf = inverse_cdf(bins, weights, u, variant)
+        u_twin = torch.gather(twin_cdf, -1, picks).contiguous()
+        inds = pdf_cuda.sample_pdf_fwd(bins, weights, u_twin, variant)[1]
+        want = inverse_cdf(bins, weights, u_twin, variant)[1]
+        off = inds != want
+        first = torch.minimum(inds, want).clamp(max=b - 1).long()
+        last = (torch.maximum(inds, want) - 1).clamp(0, b - 1).long()
+        for j in (first, last):
+            assert ((u_twin - torch.gather(twin_cdf, -1, j)).abs()[off] < 1e-6).all()
+
+    @pytest.mark.parametrize("variant", ["nerf", "nerfpp"])
+    @pytest.mark.parametrize("b", [2, 1024])
+    def test_shortest_and_longest_rows(self, cuda, variant, b):
+        """B = 2 (one weight, one searched entry for NeRF++) and B = 1024
+        (32 pieces of the scan), u = 1.0 in the last column among random u,
+        all-zero rows. The random columns hold to the twin. At B = 1024 the
+        CDF's last entry may round a few ulps below 1; NeRF++, which does not
+        search it, then carries u = 1.0 past the last edge along the last
+        bin's slope, by the CDF's shortfall and no further (the twin's CDF,
+        summed in another order, falls short elsewhere). Every depth is the
+        lerp of its count on the kernel's own CDF, bit for bit."""
+        bins, weights, u = _inputs(1027, b, 100, det=False, device=cuda)
+        u[:, -1] = 1.0
+        out, inds, cdf = pdf_cuda.sample_pdf_fwd(bins, weights, u, variant, with_cdf=True)
+        torch.cuda.synchronize()
+        want_out, _, want_cdf = inverse_cdf(bins, weights, u, variant)
+        assert_resample_close(out[:, :-1], want_out[:, :-1], bins)
+        torch.testing.assert_close(cdf, want_cdf, rtol=0, atol=1e-6)
+        monotone = (cdf.diff(dim=-1) >= 0).all(-1)
+        assert torch.equal(inds[monotone], _count_on(cdf, u, variant)[monotone])
+        assert torch.equal(out, _lerp_from(bins, cdf, u, inds, variant))
+        last = out[:, -1]
+        assert float(last.min()) >= float(bins.min()) - 1e-5
+        if variant == "nerf":
+            assert float(last.max()) <= float(bins.max()) + 1e-5
+        else:
+            eps = 1e-6
+            slope = ((bins[:, -1] - bins[:, -2] + eps)
+                     / (cdf[:, -1] - cdf[:, -2]).clamp(min=eps))
+            shortfall = (1.0 - cdf[:, -1]).clamp(min=0.0)
+            assert bool((last - bins[:, -1] <= shortfall * slope + 1e-5).all())
+
+    @pytest.mark.parametrize("variant", ["nerf", "nerfpp"])
+    def test_runs_on_the_current_stream(self, cuda, variant):
+        """As K1's: a side stream behind a sleep and the copy of the weights."""
+        bins, weights, u = _inputs(4096, 63, 128, det=False, device=cuda)
+        pending = torch.zeros_like(weights)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            torch.cuda._sleep(200_000_000)
+            pending.copy_(weights)
+            got = pdf_cuda.sample_pdf_fwd(bins, pending, u, variant, with_cdf=True)
+        side.synchronize()
+        want = pdf_cuda.sample_pdf_fwd(bins, weights, u, variant, with_cdf=True)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+
+    def test_another_card_current(self, cuda):
+        if torch.cuda.device_count() < 2:
+            pytest.skip("needs two cards")
+        bins, weights, u = _inputs(1027, 63, 100, det=False, device="cuda:0")
+        with torch.cuda.device(1):
+            out = pdf_cuda.sample_pdf_fwd(bins, weights, u, "nerfpp")[0]
+        torch.cuda.synchronize(0)
+        assert out.device == bins.device
+        assert_resample_close(out, inverse_cdf(bins, weights, u, "nerfpp")[0], bins)
+
+    def test_no_autograd_function_under_inference_mode(self, cuda, monkeypatch):
+        """The serving path's call: one operator call, no autograd function."""
+        def refuse(*args):
+            raise AssertionError("entered _SamplePdfDiff under inference_mode")
+
+        monkeypatch.setattr(pdf_cuda._SamplePdfDiff, "apply", refuse)
+        bins, weights, u = _inputs(4096, 63, 128, det=True, device=cuda)
+        before = pdf_cuda.diff_launches
+        with torch.inference_mode():
+            got = pdf_cuda.sample_pdf_diff(bins, weights, u, "nerfpp")
+        torch.cuda.synchronize()
+        assert pdf_cuda.diff_launches == before + 1
+        assert torch.equal(got, pdf_cuda.sample_pdf_fwd(bins, weights, u, "nerfpp")[0])
+
+    @pytest.mark.parametrize("grad_input", [0, 1, 2], ids=["bins", "weights", "u"])
+    @pytest.mark.parametrize("which", ["K1", "K2"])
+    def test_forward_only(self, cuda, which, grad_input):
+        """The operators have no derivative: an input that requires grad
+        under grad mode raises before a launch; under no_grad the depths
+        have no grad_fn."""
+        call = _forward_only_calls(cuda)
+        before = pdf_cuda.launches + pdf_cuda.diff_launches
+        with pytest.raises(ValueError, match="forward only"):
+            call(which, grad_input)
+        assert pdf_cuda.launches + pdf_cuda.diff_launches == before
+        with torch.no_grad():
+            out = call(which, grad_input)
+        assert out.grad_fn is None and not out.requires_grad
 
     def test_nerf_variant_is_k1(self, cuda):
         """K2's NeRF instantiation computes K1's depths bit for bit."""
@@ -433,6 +768,13 @@ class TestK2OnCard:
             pdf_cuda.sample_pdf_diff(bins, torch.cat([weights, weights], -1)[:, ::2], u)
         with pytest.raises(ValueError, match="different devices"):
             pdf_cuda.sample_pdf_diff(bins, weights, u.cpu())
+        with pytest.raises(ValueError, match="variant"):
+            pdf_cuda.sample_pdf_fwd(bins, weights, u, "nerf++")
+        with pytest.raises(TypeError, match="bins must be float32"):
+            pdf_cuda.sample_pdf_fwd(bins.double(), weights, u)
+        big = _inputs(4, pdf_cuda.MAX_BINS + 1, 8, det=True, device=cuda)
+        with pytest.raises(ValueError, match="bins"):
+            pdf_cuda.sample_pdf_fwd(*big)
 
 
 @pytest.mark.cuda
