@@ -1,5 +1,5 @@
-"""Drive the PyTorch port's NeRF and NeRF++ serving paths once on an NVIDIA
-card.
+"""Drive the PyTorch port's NeRF and NeRF++ serving paths and its NeRF
+train step once on an NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -79,18 +79,53 @@ the JAX package. Phases, each of which exits non-zero when it fails:
    float32 CUDA-core bound, and its rate counts the useful float32
    operations (2 per multiply-add of the MLP).
 
-Each serving path, and each of K3's and K4's own paths, runs with the
-kernels' launch counts set to 0 just before it and read just after. The
+10. The NeRF train step at full fern width, bench.py's workload: the fern
+    model with seeded random weights and the learnable OpenGL camera of
+    phase 3 (every ``*_noise`` and ``*_grid`` leaf trained),
+    ``TrainConfig(5e-4, 250e3, near 2, far 6)``, Adam with weight decay 0.1,
+    ``Curriculum()``, N_rand 1024, 64+64 samples, ``perturb=True``, batches
+    drawn on the card by ``make_device_sampling_step`` from 8 seeded random
+    756x1008 images. Every loss finite; at the first step every trainable
+    leaf's gradient finite and nonzero but ``distortion_noise``'s (OpenGL
+    reads no distortion); the ``*_init`` leaves bit-unchanged; K1 launched
+    once per step. ms per step and train rays/s by CUDA events over 50 steps
+    after 5 warm-up steps, peak memory, a ``torch.profiler`` breakdown of 3
+    steps (kernel groups, device idle share, which fails below -2%: device
+    time counted twice). K1 held to its plain twin, with phase 2's limits, on
+    the inputs one train step hands it. Then 30 steps on one fixed
+    batch must bring its loss below the first step's (with
+    ``raw_noise_std=1.0`` if the seeded init has dead density).
+11. bench.py's PRD step: the distortion-configured camera (focal 400,
+    identity poses), 50 random matches, PRD every step: finite loss and
+    gradients, ``prd_matches`` printed, ms per step and rays/s as phase 10.
+12. One train step on the card against the CPU port at full width: 256 rays,
+    the same params and injected randoms, without PRD, with PRD (16 matches
+    projected through the camera, one padded), and with PRD on given rays
+    (the camera then read by PRD alone): loss within relative 1e-5 and each
+    leaf's gradient within relative L2 1e-4 or, where larger, the CPU's own
+    spread: the CPU step again with each coarse sample moved by about one ulp
+    of its depth (at multires 10 a few 1e-3 on the first layers and a few
+    1e-2 on the camera) or, for the camera on given rays, with each keypoint
+    and each entry of the initial intrinsics and poses moved by one ulp (a
+    few 1e-4 to 1e-3). A lost gradient is off by 1. Controls: TF32 on in
+    the whole step, in its backward only and in PRD's forward only must each
+    break a limit. The grids' backward accumulates in an order the card does
+    not fix: an L2 limit, not an elementwise one.
+
+Each serving path, each of K3's and K4's own paths and the train path run
+with the kernels' launch counts set to 0 just before and read just after. The
 line before the last is one JSON object with the kernels' numbers, each with
 the least time the card could take for its work (``bound_ms``: bytes over
 3.35 TB/s or operations over the peak of the unit the kernel uses, float32
-at 67 TFLOP/s or, for K3, three TF32 passes at 495 TFLOP/s; the larger); the
-line before it is the card's name and power limit; the last line is
+at 67 TFLOP/s or, for K3, three TF32 passes at 495 TFLOP/s; the larger), K1's
+with its launches on the train path too, and the train metrics; the line
+before it is the card's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import dataclasses
 import json
 import math
@@ -849,6 +884,543 @@ def phase_k3(model_cfg, queries):
     return record, launches
 
 
+# The NeRF train step of bench.py's headline workload: N_rand 1024 at fern
+# width, 64+64 samples, TrainConfig(5e-4, 250e3, near 2, far 6), Adam with
+# weight decay 0.1 on the noise leaves, Curriculum().
+TRAIN_RAYS = 1024
+TRAIN_NEAR, TRAIN_FAR = 2.0, 6.0
+TRAIN_WARMUP = 5
+TRAIN_TIMED = 50
+TRAIN_DESCENT = 30
+TRAIN_PROFILED = 3
+PRD_MATCHES = 50
+CPU_TRAIN_RAYS = 256
+
+
+class RecordingOptimizer:
+    """An optimizer that keeps a copy of the first gradients it is handed
+    and passes every call on to ``inner``."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.grads = None
+
+    def init(self, params):
+        return self.inner.init(params)
+
+    def update(self, grads, state, params):
+        if self.grads is None:
+            self.grads = {k: None if g is None else g.detach().clone() for k, g in grads.items()}
+        return self.inner.update(grads, state, params)
+
+
+def train_tree(model_params: dict, camera, device) -> dict:
+    """A train tree on ``device`` (trainable leaves requiring grad) from
+    weights and a camera, through numpy, as the bridge carries JAX's."""
+    from scnerf_tpu_torch import bridge
+
+    return bridge.train_params_to_torch({
+        "coarse": bridge.tree_to_numpy(model_params["coarse"]),
+        "fine": bridge.tree_to_numpy(model_params["fine"]),
+        "camera": {**bridge.camera_to_numpy(camera), "config": camera.config},
+    }, device=device)
+
+
+def train_setup(slice_, dev, *, with_prd=False, raw_noise_std=0.0, camera=None,
+                curriculum=None):
+    """(step function, its optimizer, a fresh train state) for bench.py's
+    NeRF train workload on ``slice_``'s weights and camera."""
+    from scnerf_tpu_torch.train.curriculum import Curriculum
+    from scnerf_tpu_torch.train.optim import Optimizer
+    from scnerf_tpu_torch.train.step import TrainConfig, create_train_state, make_train_step
+
+    model_cfg, render_cfg, params, slice_camera, _ = slice_
+    render_cfg = dataclasses.replace(render_cfg, perturb=True, raw_noise_std=raw_noise_std)
+    train_cfg = TrainConfig(lr_init=5e-4, lr_decay_steps=250e3, weight_decay=0.1,
+                            near=TRAIN_NEAR, far=TRAIN_FAR)
+    optimizer = RecordingOptimizer(Optimizer.from_config(train_cfg))
+    step = make_train_step(model_cfg, render_cfg, train_cfg, curriculum or Curriculum(),
+                           optimizer, with_prd=with_prd)
+    state = create_train_state(train_tree(params, camera or slice_camera, dev), optimizer)
+    return step, optimizer, state
+
+
+def time_steps(run_step, state, n: int):
+    """(state, metrics of each step, ms per step by CUDA events around
+    ``n`` back-to-back steps)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    metrics = []
+    start.record()
+    for _ in range(n):
+        state, m = run_step(state)
+        metrics.append(m)
+    end.record()
+    end.synchronize()
+    return state, metrics, start.elapsed_time(end) / n
+
+
+KERNEL_GROUPS = (  # (group, substrings of the kernel name), first match wins
+    ("K1 sample_pdf", ("sample_pdf",)),
+    ("GEMMs", ("gemm", "gemv", "cutlass", "xmma", "cublas", "sm90_", "ampere_")),
+    ("ReLU and its backward", ("threshold", "relu", "clamp_min")),
+    ("concatenation and copies", ("cat", "copy")),
+    ("sin/cos", ("sin", "cos")),
+    ("reductions", ("reduce",)),
+    ("sort", ("sort", "radix")),
+    ("index, gather, scatter", ("index", "gather", "scatter")),
+    ("other elementwise", ("elementwise", "vectorized", "unrolled", "foreach")),
+)
+
+
+def profile_steps(run_step, state, n: int = TRAIN_PROFILED):
+    """Device time of ``n`` steps by kernel group under ``torch.profiler``,
+    and the share of the window's host-clock time in which the device ran
+    no kernel. Returns (state, {group: ms per step}, idle share, top
+    kernels)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            state, _ = run_step(state)
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    kernels = [(e.key, e.count, e.self_device_time_total / 1e3) for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    require(bool(kernels), "the profiler saw no device time in the train step")
+    # The host's calls into the CUDA runtime, a step: launches, copies and
+    # waits for the device.
+    runtime = {e.key: e.count / n for e in events
+               if e.device_type == torch.autograd.DeviceType.CPU and e.key.startswith("cuda")}
+    ops = sorted(((e.count / n, e.key) for e in events
+                  if e.device_type == torch.autograd.DeviceType.CPU
+                  and e.key.startswith("aten::")), reverse=True)[:10]
+    groups = {}
+    for key, _, ms in kernels:
+        name = key.lower()
+        group = next((g for g, subs in KERNEL_GROUPS if any(x in name for x in subs)), "other")
+        groups[group] = groups.get(group, 0.0) + ms / n
+    top = sorted(kernels, key=lambda k: -k[2])[:8]
+    launches = sum(count for _, count, _ in kernels) / n
+    return state, dict(groups=groups, top=top, ops=ops, kernels_a_step=launches,
+                       runtime_a_step=runtime, window_ms_a_step=window_ms / n)
+
+
+def sync_sites(run_step, state):
+    """One step under ``torch.cuda.set_sync_debug_mode("warn")``: the
+    Python lines whose operation waited for the device."""
+    import warnings
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            state, _ = run_step(state)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    here = os.path.dirname(os.path.abspath(__file__))
+    return state, sorted({f"{os.path.relpath(w.filename, here)}:{w.lineno}" for w in caught
+                          if "synchroniz" in str(w.message)})
+
+
+def print_profile(profile, step_ms: float, n: int = TRAIN_PROFILED):
+    """The profile, and the device's idle share of a step: 1 - device time a
+    step over ``step_ms``, the step's time by CUDA events without the
+    profiler (which slows the host severalfold). Returns the share."""
+    groups, top = profile["groups"], profile["top"]
+    busy = sum(groups.values())
+    idle = 1.0 - busy / step_ms
+    # More device time than the step takes would mean kernels counted twice.
+    require(idle >= -0.02, f"profiled device time {busy:.3f} ms a step exceeds the "
+                           f"{step_ms:.3f} ms step")
+    print(f"  profile of {n} steps: {busy:.3f} ms device time a step, so the device idles "
+          f"{idle:.2%} of a {step_ms:.3f} ms step ({profile['window_ms_a_step']:.3f} ms a step "
+          f"by the host's clock under the profiler); {profile['kernels_a_step']:.0f} kernels a "
+          f"step; CUDA runtime calls a step: "
+          + ", ".join(f"{k} {v:g}" for k, v in sorted(profile["runtime_a_step"].items())))
+    for group, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
+        print(f"    {group}: {ms:.3f} ms a step ({ms / busy:.2%})")
+    for key, count, ms in top:
+        print(f"    kernel {ms / n:.3f} ms a step x{count / n:g}: {key[:90]}")
+    print("    most frequent operators a step: "
+          + ", ".join(f"{key} {count:g}" for count, key in profile["ops"]))
+    return idle
+
+
+def record_resample_inputs(run_step, state):
+    """One step, with the (bins, weights, u) that ``render_rays`` hands K1
+    and the depths K1 returned to it recorded."""
+    from scnerf_tpu_torch.render import renderer
+
+    calls = []
+    core = renderer.sample_pdf_core
+
+    def recording(bins, weights, u):
+        out = core(bins, weights, u)
+        calls.append((bins, weights, u, out))
+        return out
+
+    renderer.sample_pdf_core = recording
+    try:
+        state, _ = run_step(state)
+    finally:
+        renderer.sample_pdf_core = core
+    require(len(calls) == 1, f"K1 called {len(calls)} times in one train step")
+    return state, calls[0]
+
+
+def phase_train(dev, card, slice_):
+    """Phase 10: the NeRF train step at full fern width, batches drawn on
+    the card."""
+    from scnerf_tpu_torch.camera import FROZEN_LEAVES, pixels_to_rays
+    from scnerf_tpu_torch.kernels import pdf_cuda
+    from scnerf_tpu_torch.render.renderer import render_rays
+    from scnerf_tpu_torch.serve import fp32
+    from scnerf_tpu_torch.train.device_sampling import (
+        make_device_sampling_step, sample_batch_on_device,
+    )
+
+    print("== phase 10: NeRF train step at full fern width on the card")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+    images = torch.rand((N_IMAGES, H, W, 3), generator=gen, device=dev)
+    base, optimizer, state = train_setup(slice_, dev)
+    step = make_device_sampling_step(base, images, TRAIN_RAYS)
+    camera = state.params["camera"]
+    frozen = {name: getattr(camera, name).clone() for name in FROZEN_LEAVES}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    reset_launches()
+    warm = []
+    for _ in range(TRAIN_WARMUP):
+        state, m = step(state, gen)
+        warm.append(m)
+    state, timed, ms = time_steps(lambda s: step(s, gen), state, TRAIN_TIMED)
+    steps = TRAIN_WARMUP + TRAIN_TIMED
+    counts = launch_counts()
+    launches = counts["K1"]
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    print(f"  launches on the train path over {steps} steps: {counts}")
+    require(launches == steps, f"K1 launched {launches} times in {steps} train steps")
+
+    losses = torch.stack([m["loss"] for m in warm + timed])
+    require(bool(torch.isfinite(losses).all()), "a train step's loss is not finite")
+    first = {}
+    for path, g in optimizer.grads.items():
+        if g is None:
+            first[path] = "none"
+            continue
+        require(bool(torch.isfinite(g).all()), f"first-step gradient of {path} not finite")
+        first[path] = "nonzero" if bool(g.abs().any()) else "zero"
+    zero = sorted(p for p, v in first.items() if v != "nonzero")
+    print(f"  first step: {len(first)} trainable leaves, gradients finite; without a "
+          f"nonzero gradient: {zero}")
+    require(zero == ["camera/distortion_noise"],
+            f"leaves without a nonzero first-step gradient: {zero}")
+    for name, x in frozen.items():
+        require(torch.equal(getattr(camera, name), x), f"the frozen {name} moved")
+    rays_per_s = TRAIN_RAYS / ms * 1e3
+    print(f"  {ms:.3f} ms a step by CUDA events over {TRAIN_TIMED} steps after "
+          f"{TRAIN_WARMUP} warm-up steps: {rays_per_s:.1f} train rays/s ({card}); peak "
+          f"memory {peak_gib:.3f} GiB; loss first {float(losses[0]):.5f} last "
+          f"{float(losses[-1]):.5f}")
+
+    state, profile = profile_steps(lambda s: step(s, gen), state)
+    idle = print_profile(profile, ms)
+    state, sites = sync_sites(lambda s: step(s, gen), state)
+    print(f"  calls that wait for the device in one step: {sites or 'none'}")
+
+    # K1 against its plain twin on the inputs the train step gives it:
+    # jittered coarse bins, weights of the trained field, random u.
+    state, (bins, weights, u, got) = record_resample_inputs(lambda s: step(s, gen), state)
+    shapes = [tuple(x.shape) for x in (bins, weights, u)]
+    n_coarse, n_fine = slice_[1].n_samples, slice_[1].n_importance
+    require(shapes == [(TRAIN_RAYS, n_coarse - 1), (TRAIN_RAYS, n_coarse - 2),
+                       (TRAIN_RAYS, n_fine)], f"K1's inputs in the train step: {shapes}")
+    med, k1_err, flips = check_resample(got, pdf_cuda.sample_pdf_plain(bins, weights, u), bins,
+                                        "K1 on the train step's inputs")
+    print(f"  K1 on one train step's inputs {shapes}: median|err|={med:.3e} "
+          f"max|err|={k1_err:.3e} share>1e-4={flips:.2e} against its plain twin")
+
+    # Descent on one fixed batch. With dead density at the seeded init (acc
+    # near 0 everywhere, so ReLU passes no density gradient) the check runs
+    # with raw_noise_std = 1.0, as the LLFF reference trains.
+    batch = sample_batch_on_device(images, gen, TRAIN_RAYS)
+    fresh = train_setup(slice_, dev)[2]
+    with torch.no_grad(), fp32():
+        rays_o, rays_d = pixels_to_rays(fresh.params["camera"], batch["px"], batch["py"],
+                                        image_idx=batch["img_idx"])
+        viewdirs = rays_d / (torch.linalg.vector_norm(rays_d, dim=-1, keepdim=True) + 1e-10)
+        acc = render_rays(fresh.params, slice_[0], slice_[1], rays_o, rays_d, viewdirs,
+                          TRAIN_NEAR, TRAIN_FAR, gen)["acc"]
+    acc_mean = float(acc.mean())
+    noise = 1.0 if acc_mean < 1e-3 else 0.0
+    base, _, fresh = train_setup(slice_, dev, raw_noise_std=noise)
+    fixed = []
+    for _ in range(TRAIN_DESCENT + 1):
+        fresh, m = base(fresh, batch, gen)
+        fixed.append(m["loss"])
+    fixed = [float(x) for x in fixed]
+    print(f"  fixed batch: acc mean at init {acc_mean:.3e}, raw_noise_std {noise}; loss "
+          f"{fixed[0]:.5f} at the first step, {fixed[-1]:.5f} after {TRAIN_DESCENT} steps")
+    require(fixed[-1] < fixed[0], f"the loss on a fixed batch did not fall: {fixed}")
+    return dict(train_launches=launches, train_max_abs_err=k1_err, train_steps=steps, train_ms=ms,
+                train_rays_per_s=rays_per_s, train_peak_gib=peak_gib,
+                train_idle=idle, train_profile_ms=profile["groups"],
+                train_kernels_a_step=profile["kernels_a_step"])
+
+
+def phase_prd_train(dev, card, slice_):
+    """Phase 11: bench.py's PRD step: the distortion-configured camera, 50
+    matches, PRD every step."""
+    from scnerf_tpu_torch.camera import CameraConfig, OPENGL, init_camera
+    from scnerf_tpu_torch.train.curriculum import Curriculum
+
+    print("== phase 11: NeRF train step with PRD every step on the card")
+    cfg = CameraConfig(H=H, W=W, convention=OPENGL, use_distortion=True,
+                       ray_o_noise_scale=1e-4, ray_d_noise_scale=1e-4,
+                       extrinsics_noise_scale=1.0, distortion_noise_scale=1e-2)
+    K = np.array([[400.0, 0, W / 2, 0], [0, 400.0, H / 2, 0], [0, 0, 1, 0], [0, 0, 0, 1]])
+    camera = init_camera(K, np.tile(np.eye(4), (N_IMAGES, 1, 1)), cfg, device=dev)
+    step, optimizer, state = train_setup(slice_, dev, with_prd=True, camera=camera,
+                                         curriculum=Curriculum(add_prd=0, i_ray_dist_loss=1))
+    rng = np.random.RandomState(6)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in {
+        "px": rng.randint(0, W, TRAIN_RAYS).astype(np.float32),
+        "py": rng.randint(0, H, TRAIN_RAYS).astype(np.float32),
+        "img_idx": rng.randint(0, N_IMAGES, TRAIN_RAYS),
+        "target": rng.rand(TRAIN_RAYS, 3).astype(np.float32),
+        "kps0": (rng.rand(PRD_MATCHES, 2) * [W, H]).astype(np.float32),
+        "kps1": (rng.rand(PRD_MATCHES, 2) * [W, H]).astype(np.float32),
+        "kp_mask": np.ones((PRD_MATCHES,), bool),
+        "pair_idx": np.array([0, 1]),
+    }.items()}
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    state, first = step(state, batch, gen)
+    for path, g in optimizer.grads.items():
+        require(g is None or bool(torch.isfinite(g).all()), f"PRD step: {path} gradient not finite")
+    for _ in range(TRAIN_WARMUP - 1):
+        state, _ = step(state, batch, gen)
+    state, metrics, ms = time_steps(lambda s: step(s, batch, gen), state, TRAIN_TIMED)
+    losses = torch.stack([first["loss"]] + [m["loss"] for m in metrics])
+    require(bool(torch.isfinite(losses).all()), "a PRD step's loss is not finite")
+    rays_per_s = TRAIN_RAYS / ms * 1e3
+    print(f"  prd_matches {float(first['prd_matches']):g} of {PRD_MATCHES} (random keypoints, "
+          f"as bench.py), prd {float(first['prd']):.5f}; gradients finite")
+    print(f"  {ms:.3f} ms a step by CUDA events over {TRAIN_TIMED} steps after "
+          f"{TRAIN_WARMUP} warm-up steps: {rays_per_s:.1f} train rays/s ({card})")
+    state, profile = profile_steps(lambda s: step(s, batch, gen), state)
+    idle = print_profile(profile, ms)
+    state, sites = sync_sites(lambda s: step(s, batch, gen), state)
+    print(f"  calls that wait for the device in one step: {sites or 'none'}")
+    return dict(prd_train_ms=ms, prd_train_rays_per_s=rays_per_s, prd_train_idle=idle)
+
+
+@contextlib.contextmanager
+def tf32_on():
+    """TF32 on for matmuls and cuDNN in the block, the flags restored after:
+    phase 12's controls."""
+    old = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = old
+
+
+def phase_train_cpu_agreement(dev, slice_):
+    """Phase 12: one train step on the card against the CPU port, the same
+    params and injected randoms: without PRD, with PRD, and with PRD on
+    given rays; and the controls with TF32 on."""
+    from scnerf_tpu_torch import bridge
+    from scnerf_tpu_torch.camera import get_extrinsics, get_intrinsic, pixels_to_rays
+    from scnerf_tpu_torch.kernels import pdf_cuda
+    from scnerf_tpu_torch.train.curriculum import Curriculum
+
+    print("== phase 12: one train step on the card against the CPU port")
+    model_cfg, render_cfg, params, camera, _ = slice_
+    n, s, si = CPU_TRAIN_RAYS, render_cfg.n_samples, render_cfg.n_importance
+    rng = np.random.default_rng(SEED + 12)
+    batch = {
+        "px": rng.integers(0, W, n).astype(np.float32),
+        "py": rng.integers(0, H, n).astype(np.float32),
+        "img_idx": rng.integers(0, N_IMAGES, n),
+        "target": rng.random((n, 3)).astype(np.float32),
+        "rands": {"t": rng.random((n, s)), "noise0": rng.normal(size=(n, s)),
+                  "noise1": rng.normal(size=(n, s + si)), "u": rng.random((n, si))},
+    }
+    batch["rands"] = {k: v.astype(np.float32) for k, v in batch["rands"].items()}
+    # Matches between images 0 and 1: points 3-5 units along image 0's rays,
+    # projected into image 1 through the same camera (OpenGL), half a pixel
+    # of noise; the last one padded.
+    cpu_camera = train_tree(params, camera, "cpu")["camera"]
+    m = 16
+    kps0 = np.stack([rng.uniform(0, W, m), rng.uniform(0, H, m)], -1).astype(np.float32)
+    with torch.no_grad():
+        o, d = pixels_to_rays(cpu_camera, torch.from_numpy(kps0[:, 0]),
+                              torch.from_numpy(kps0[:, 1]), image_idx=0)
+        pts = o + d * torch.from_numpy(rng.uniform(3.0, 5.0, (m, 1)).astype(np.float32))
+        w2c = torch.linalg.inv(get_extrinsics(cpu_camera)[1])
+        cam = pts @ w2c[:3, :3].T + w2c[:3, 3]
+        K = get_intrinsic(cpu_camera)
+        kps1 = torch.stack([K[0, 2] - K[0, 0] * cam[:, 0] / cam[:, 2],
+                            K[1, 2] + K[1, 1] * cam[:, 1] / cam[:, 2]], -1).numpy()
+    mask = np.ones(m, bool)
+    mask[-1] = False
+    prd_batch = {**batch, "kps0": kps0, "kps1": (kps1 + rng.normal(size=(m, 2)) * 0.5)
+                 .astype(np.float32), "kp_mask": mask, "pair_idx": np.array([0, 1])}
+
+    # The rays given, the camera read by PRD alone: its gradient then comes
+    # from PRD, which reads no sample depths, and its limit from PRD's own
+    # spread, apart from the photometric term's.
+    with torch.no_grad():
+        rays_o, rays_d = pixels_to_rays(cpu_camera, torch.from_numpy(batch["px"]),
+                                        torch.from_numpy(batch["py"]),
+                                        image_idx=torch.from_numpy(batch["img_idx"]))
+    rays_batch = {k: v for k, v in prd_batch.items() if k not in ("px", "py", "img_idx")}
+    rays_batch.update(rays_o=rays_o.numpy(), rays_d=rays_d.numpy())
+    cases = {"without PRD": batch, "with PRD": prd_batch,
+             "with PRD, rays given": rays_batch}
+
+    def to(b, device):
+        return {k: to(v, device) if isinstance(v, dict) else torch.from_numpy(v).to(device)
+                for k, v in b.items()}
+
+    def one_step(device, b, tf32=None, camera_=None):
+        """The metrics and gradients (on the CPU) of one step on ``device``;
+        ``tf32`` turns TF32 on there, as a control: in the whole "step", in
+        its "backward" only, or in the forward of "PRD" only."""
+        from scnerf_tpu_torch.train import step as step_module
+
+        step, optimizer, state = train_setup(
+            slice_, device, with_prd="kps0" in b, camera=camera_,
+            curriculum=Curriculum(add_prd=0, i_ray_dist_loss=1))
+        before = pdf_cuda.launches
+        fp32, grad, prd = step_module.fp32, torch.autograd.grad, step_module.prd_loss
+
+        def under_tf32(fn):
+            def call(*args, **kwargs):
+                with tf32_on():
+                    return fn(*args, **kwargs)
+            return call
+
+        if tf32 == "step":
+            step_module.fp32 = tf32_on
+        elif tf32 == "backward":
+            torch.autograd.grad = under_tf32(grad)
+        elif tf32 == "PRD":
+            step_module.prd_loss = under_tf32(prd)
+        try:
+            _, metrics = step(state, to(b, device))
+        finally:
+            step_module.fp32, torch.autograd.grad, step_module.prd_loss = fp32, grad, prd
+        launched = pdf_cuda.launches - before
+        require(launched == (1 if device.type == "cuda" else 0),
+                f"K1 launched {launched} times in one {device.type} train step")
+        return ({k: float(v) for k, v in metrics.items()},
+                {k: None if g is None else g.cpu() for k, g in optimizer.grads.items()})
+
+    def rel_l2(got, want):
+        norm = float(want.norm())
+        return float((got - want).norm()) / norm if norm > 0 else float(got.norm())
+
+    def over_limits(m, g, cpu_m, cpu_g, limits):
+        """(relative loss error, rows (error / limit, path, error, limit))."""
+        rel_loss = abs(m["loss"] - cpu_m["loss"]) / abs(cpu_m["loss"])
+        rows = []
+        for path, g_cpu in cpu_g.items():
+            if g_cpu is None or g[path] is None:
+                require(g_cpu is None and g[path] is None, f"{path}: a gradient on one side only")
+                continue
+            rel = rel_l2(g[path], g_cpu)
+            rows.append((rel / limits[path], path, rel, limits[path]))
+        return rel_loss, sorted(rows, reverse=True)
+
+    depth = TRAIN_NEAR + (TRAIN_FAR - TRAIN_NEAR) * np.arange(s) / (s - 1)
+    dt = np.spacing(depth.astype(np.float32)) / ((TRAIN_FAR - TRAIN_NEAR) / (s - 1))
+
+    def nudged_step(b, kind):
+        """The CPU gradients of one step with one-ulp random moves of the
+        coarse samples' depths ("samples"), or of the keypoints and the
+        camera's initial intrinsics and poses ("PRD")."""
+        ups = lambda x: np.where(rng.random(x.shape) < 0.5, -1.0, 1.0)  # noqa: E731
+        if kind == "samples":
+            t = b["rands"]["t"]
+            nudged = {**b, "rands": {**b["rands"], "t": np.clip(
+                t + ups(t) * dt, 0.0, 1.0).astype(np.float32)}}
+            return one_step(torch.device("cpu"), nudged)[1]
+        nudged = {**b, **{k: (b[k] + ups(b[k]) * np.spacing(b[k])).astype(np.float32)
+                          for k in ("kps0", "kps1")}}
+        leaves = bridge.camera_to_numpy(camera)
+        for k in ("intrinsics_init", "extrinsics_init"):
+            leaves[k] = (leaves[k] + ups(leaves[k]) * np.spacing(leaves[k])).astype(np.float32)
+        nudged_camera = bridge.camera_from_numpy({**leaves, "config": camera.config},
+                                                 device="cpu")
+        return one_step(torch.device("cpu"), nudged, camera_=nudged_camera)[1]
+
+    for case, b in cases.items():
+        card_m, card_g = one_step(dev, b)
+        cpu_m, cpu_g = one_step(torch.device("cpu"), b)
+        # float32's own spread: the larger change of each leaf's CPU gradient
+        # over two nudged CPU steps, so that one lucky draw does not set the
+        # limit. Photometric: each coarse sample moved by about one ulp of
+        # its depth, up or down at random, as the two devices' roundings move
+        # some of them; at multires 10 sin(2^9 x) turns an ulp of x into
+        # ~1e-4 of its value, and the first layers' and the camera's
+        # gradients sum such terms with cancellation. PRD, for the camera
+        # when the rays are given: each keypoint coordinate and each entry of
+        # the camera's initial intrinsics and poses moved by one ulp; the
+        # triangulation of rays a small baseline apart amplifies it.
+        rays_given = "rays_o" in b
+        kinds = ("samples", "PRD") if rays_given else ("samples",)
+        spread = {kind: [nudged_step(b, kind) for _ in range(2)] for kind in kinds}
+        limits = {}
+        for path, g_cpu in cpu_g.items():
+            if g_cpu is not None:
+                kind = "PRD" if rays_given and path.startswith("camera/") else "samples"
+                limits[path] = max(1e-4, max(rel_l2(g[path], g_cpu) for g in spread[kind]))
+        rel_loss, rows = over_limits(card_m, card_g, cpu_m, cpu_g, limits)
+        extra = (f"; prd {card_m['prd']:.6f} / {cpu_m['prd']:.6f}, prd_matches "
+                 f"{card_m['prd_matches']:g} / {cpu_m['prd_matches']:g}") if "prd" in cpu_m else ""
+        held = sum(limit == 1e-4 for limit in limits.values())
+        print(f"  {case}, {n} rays: loss {card_m['loss']:.7f} card, {cpu_m['loss']:.7f} CPU "
+              f"(relative {rel_loss:.3e}){extra}; {len(rows)} leaves, {held} held at 1e-4, "
+              f"the rest at the CPU's spread under one-ulp moves of the "
+              + ("samples (the camera's: of PRD's inputs)" if rays_given else "samples"))
+        shown = rows[:6] + [r for r in rows[6:] if r[1].startswith("camera/")]
+        for ratio, path, rel, limit in shown:
+            print(f"    {path}: card vs CPU {rel:.3e}, limit {limit:.3e} ({ratio:.2f} of it)")
+        for ratio, path, rel, limit in rows:
+            require(ratio <= 1.0, f"{case}: card vs CPU gradient of {path}: relative L2 "
+                                  f"{rel:.3e} over its limit {limit:.3e}")
+        require(rel_loss <= 1e-5, f"{case}: card vs CPU train loss relative error {rel_loss}")
+        if rays_given:
+            require(card_m["prd_matches"] > 0, "no PRD match in the rays-given case")
+        # Controls: TF32 on in the whole step, in its backward only, and in
+        # PRD's forward only. The same limits must catch each that moves
+        # anything.
+        for tf32 in ("step", "backward", "PRD") if "kps0" in b else ("step", "backward"):
+            m, g = one_step(dev, b, tf32)
+            rel_loss, rows = over_limits(m, g, cpu_m, cpu_g, limits)
+            failed = [f"{path} {ratio:.2f}x" for ratio, path, _, _ in rows if ratio > 1.0]
+            moved = max(rel_l2(g[p], card_g[p]) for p in limits)
+            print(f"  control, TF32 on in the {tf32}: loss relative {rel_loss:.3e}"
+                  f"{' (over 1e-5)' if rel_loss > 1e-5 else ''}; gradients moved up to "
+                  f"{moved:.3e} from the float32 card step; {len(failed)} leaves over their "
+                  f"limits: {', '.join(failed[:8]) or 'none'}")
+            if rays_given:
+                print("    the camera's (PRD's) leaves against their limits: " + ", ".join(
+                    f"{path} {ratio:.2f}x" for ratio, path, _, _ in rows
+                    if path.startswith("camera/")))
+            require(moved == 0.0 or rel_loss > 1e-5 or bool(failed),
+                    f"{case}: TF32 on in the {tf32} passes the limits")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on an NVIDIA card",
@@ -902,6 +1474,12 @@ def main() -> int:
 
     search_record, search_launches = phase_k4(dev)
     field_record, field_launches = phase_k3(model_cfg, queries)
+    del queries
+
+    train_slice = make_slice(dev)
+    train_record = phase_train(dev, card, train_slice)
+    prd_record = phase_prd_train(dev, card, train_slice)
+    phase_train_cpu_agreement(dev, train_slice)
 
     print(json.dumps({"kernels": [{
         "name": "sample_pdf",
@@ -910,6 +1488,8 @@ def main() -> int:
         "source": "scnerf_tpu_torch/csrc/sample_pdf.cu",
         "replaces": "scnerf_tpu/kernels/pdf_pallas.py:66",
         "launches": launches,
+        "train_launches": train_record["train_launches"],
+        "train_max_abs_err": train_record["train_max_abs_err"],
         **record,
     }, {
         "name": "sample_pdf_nerfpp",
@@ -935,7 +1515,7 @@ def main() -> int:
         "replaces": "scnerf_tpu/kernels/mlp_pallas.py:85",
         "launches": field_launches,
         **field_record,
-    }]}))
+    }], "train": {**train_record, **prd_record}}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

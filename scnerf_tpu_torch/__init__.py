@@ -1,4 +1,5 @@
-"""scnerf-tpu on PyTorch and CUDA: the NeRF and NeRF++ serving paths.
+"""scnerf-tpu on PyTorch and CUDA: the NeRF and NeRF++ serving paths and the
+NeRF train step (learnable camera, PRD loss, the masked Adam chain).
 
 A port of ``scnerf_tpu`` (JAX) that runs on an NVIDIA Hopper card. Module
 paths mirror the JAX package, so ``scnerf_tpu/render/renderer.py`` has its

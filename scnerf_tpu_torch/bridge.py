@@ -12,7 +12,11 @@ np.asarray, tree)``), so this module imports neither ``jax`` nor
   (:data:`CAMERA_LEAVES`), plus its config.
 - Configs: a port config is built from the fields of a JAX config with the
   same names; JAX-only fields are checked to be ones the port's values do not
-  depend on.
+  depend on (``TrainConfig`` and ``Curriculum`` included).
+- Training parameters: the JAX train tree ``{"coarse", "fine", "camera"}``
+  becomes the port's with the trainable leaves requiring grad
+  (:func:`train_params_to_torch`), and goes back by JAX leaf name
+  (:func:`train_params_to_numpy`).
 """
 from __future__ import annotations
 
@@ -22,7 +26,10 @@ from typing import Any
 import numpy as np
 import torch
 
-from scnerf_tpu_torch.camera.model import CAMERA_LEAVES, Camera, CameraConfig
+from scnerf_tpu_torch.camera.model import (
+    CAMERA_LEAVES, Camera, CameraConfig, camera_leaves, trainable_camera,
+)
+from scnerf_tpu_torch.train.optim import named_leaves
 
 # JAX config fields the port leaves out, with the only values whose results
 # the port reproduces (None: any value). ``pdf_impl`` picks an
@@ -101,4 +108,29 @@ def camera_from_numpy(camera: Any, *, device: torch.device | str = "cuda") -> Ca
 def camera_to_numpy(camera: Camera) -> dict[str, np.ndarray]:
     """The port's camera leaves as numpy, by JAX leaf name (feed them to
     ``jax_camera.replace(**leaves)``)."""
-    return {name: getattr(camera, name).detach().cpu().numpy() for name in CAMERA_LEAVES}
+    return {name: x.detach().cpu().numpy() for name, x in camera_leaves(camera).items()}
+
+
+def train_params_to_torch(params: dict, *, device: torch.device | str = "cuda") -> dict:
+    """A JAX train tree with numpy leaves (``jax.tree.map(np.asarray,
+    params)``: ``{"coarse", "fine", "camera"}``, each optional) -> the
+    port's, every MLP leaf and the camera's ``*_noise``/``*_grid`` leaves
+    requiring grad."""
+    out = {}
+    for key, sub in params.items():
+        if key == "camera":
+            out[key] = None if sub is None else trainable_camera(
+                camera_from_numpy(sub, device=device))
+        else:
+            out[key] = tree_to_torch(sub, device=device)
+            for x in named_leaves(out[key]).values():
+                x.requires_grad_(True)
+    return out
+
+
+def train_params_to_numpy(params: dict) -> dict:
+    """The port's train tree -> numpy: the MLPs as :func:`tree_to_numpy`,
+    the camera as its leaves by JAX name (feed them to
+    ``jax_camera.replace(**leaves)``)."""
+    return {key: (camera_to_numpy(sub) if isinstance(sub, Camera) else tree_to_numpy(sub))
+            for key, sub in params.items()}

@@ -11,7 +11,9 @@ Port of ``scnerf_tpu/camera/model.py`` without its logging helpers:
   interpolated at the requested pixels.
 
 The state is a plain dataclass of tensors; the leaves have the JAX names and
-shapes, so ``bridge.py`` copies them one to one.
+shapes, so ``bridge.py`` copies them one to one. For training,
+:func:`trainable_camera` makes the ``*_noise`` and ``*_grid`` leaves require
+grad; the ``*_init`` leaves never do.
 """
 from __future__ import annotations
 
@@ -35,6 +37,8 @@ CAMERA_LEAVES = (
     "intrinsics_noise", "extrinsics_noise", "distortion_noise",
     "ray_o_grid", "ray_d_grid",
 )
+FROZEN_LEAVES = CAMERA_LEAVES[:3]
+TRAINABLE_LEAVES = CAMERA_LEAVES[3:]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -122,6 +126,21 @@ def init_camera(
     )
 
 
+def camera_leaves(camera: Camera) -> dict[str, torch.Tensor]:
+    """The camera's tensors by JAX leaf name, in :data:`CAMERA_LEAVES`
+    order."""
+    return {name: getattr(camera, name) for name in CAMERA_LEAVES}
+
+
+def trainable_camera(camera: Camera) -> Camera:
+    """A copy of ``camera`` to train: the ``*_noise`` and ``*_grid`` leaves
+    are new leaf tensors that require grad, the ``*_init`` leaves copies that
+    do not."""
+    return dataclasses.replace(camera, **{
+        name: x.detach().clone().requires_grad_(name in TRAINABLE_LEAVES)
+        for name, x in camera_leaves(camera).items()})
+
+
 def get_intrinsic(camera: Camera) -> torch.Tensor:
     """Current 4x4 K."""
     cfg = camera.config
@@ -144,12 +163,23 @@ def get_extrinsics(camera: Camera) -> torch.Tensor:
         camera.extrinsics_init + cfg.extrinsics_noise_scale * camera.extrinsics_noise)
 
 
+def _take_rows(x: torch.Tensor, idx) -> torch.Tensor:
+    """``x[idx]`` for an int or an index tensor. A tensor goes through
+    ``index_select``: its backward is one ``index_add`` (a plain ``x[t]``'s
+    is a sort-based ``index_put``, dozens of launches), and a 0-d tensor is
+    not read back to the host."""
+    if not isinstance(idx, torch.Tensor):
+        return x[idx]
+    rows = x.index_select(0, idx.reshape(-1).to(device=x.device, dtype=torch.long))
+    return rows.reshape(*idx.shape, *x.shape[1:])
+
+
 def get_extrinsic(camera: Camera, idx) -> torch.Tensor:
     """Single (or gathered) c2w extrinsic(s) for image index/indices ``idx``."""
     cfg = camera.config
     return _decode_extrinsics(
-        camera.extrinsics_init[idx]
-        + cfg.extrinsics_noise_scale * camera.extrinsics_noise[idx])
+        _take_rows(camera.extrinsics_init, idx)
+        + cfg.extrinsics_noise_scale * _take_rows(camera.extrinsics_noise, idx))
 
 
 def get_distortion(camera: Camera) -> torch.Tensor:
@@ -180,8 +210,13 @@ def sample_noise_grid(grid: torch.Tensor, px: torch.Tensor, py: torch.Tensor,
     x0 = torch.clamp(x0f.long(), 0, gw - 1)
     y1 = torch.clamp(y0 + 1, max=gh - 1)
     x1 = torch.clamp(x0 + 1, max=gw - 1)
-    top = grid[y0, x0] * (1.0 - wx) + grid[y0, x1] * wx
-    bot = grid[y1, x0] * (1.0 - wx) + grid[y1, x1] * wx
+    flat = grid.reshape(gh * gw, grid.shape[-1])
+
+    def at(y, x):
+        return _take_rows(flat, y * gw + x)
+
+    top = at(y0, x0) * (1.0 - wx) + at(y0, x1) * wx
+    bot = at(y1, x0) * (1.0 - wx) + at(y1, x1) * wx
     return top * (1.0 - wy) + bot * wy
 
 

@@ -86,7 +86,9 @@ def pixels_to_rays(
     pix = torch.stack([u, v, torch.ones_like(u)], dim=-1)  # (M, 3)
     dirs = pix @ K_inverse_3x3(K).T
     if cfg.convention == OPENGL:
-        dirs = dirs * dirs.new_tensor([1.0, -1.0, -1.0])
+        # Negate y and z (no constant tensor: its host-to-device copy would
+        # wait for the device).
+        dirs = torch.cat([dirs[..., :1], -dirs[..., 1:]], dim=-1)
 
     rays_o, rays_d = _rotate(c2w, dirs)
     if add_noise:

@@ -7,9 +7,10 @@ rgb; alpha from the trunk). The output is raw ``[rgb_logits(3), sigma(1)]``;
 the compositor applies the activations.
 
 The matmuls are ``torch.addmm`` in float32, as the JAX package leaves them to
-XLA outside any kernel. JAX's sample-chunked ``query_field_chunked`` is a
-training lever with the same values; the forward-only port calls
-:func:`query_field` directly.
+XLA outside any kernel; autograd differentiates them for the train step.
+JAX's sample-chunked, rematerialised ``query_field_chunked`` is a memory lever
+with the same values; the port calls :func:`query_field` directly, serving
+and training alike (a fern train step peaks at a few GiB on an 80 GB card).
 """
 from __future__ import annotations
 

@@ -1,9 +1,10 @@
 """SO(3) helpers used by the learnable camera.
 
 Port of the parts of ``scnerf_tpu/geometry/so3.py`` that the serving path
-runs: the 6D (Gram-Schmidt) rotation, its inverse, the 4x4 embedding, and the
-pinhole K and its closed-form inverse. Same clamps and epsilons, so a
-calibration learned by the JAX package decodes to the same matrices here.
+and the train step run: the 6D (Gram-Schmidt) rotation, its inverse, the 4x4
+embedding, the rigid inverse, and the pinhole K and its closed-form inverse.
+Same clamps and epsilons, so a calibration learned by the JAX package decodes
+to the same matrices here.
 """
 from __future__ import annotations
 
@@ -46,6 +47,17 @@ def embed_rotation_44(R: torch.Tensor) -> torch.Tensor:
     out[..., :3, :3] = R
     out[..., 3, 3] = 1.0
     return out
+
+
+def se3_inverse(E: torch.Tensor) -> torch.Tensor:
+    """Invert rigid transforms ``(..., 4, 4)`` without a linear solve:
+    ``[R | t]^-1 = [R^T | -R^T t]``."""
+    Rt = E[..., :3, :3].transpose(-1, -2)
+    t = -torch.einsum("...ij,...j->...i", Rt, E[..., :3, 3])
+    top = torch.cat([Rt, t[..., None]], dim=-1)
+    bottom = torch.zeros_like(E[..., 3:, :])
+    bottom[..., 3] = 1.0
+    return torch.cat([top, bottom], dim=-2)
 
 
 def intrinsic_param_to_K(intrinsics: torch.Tensor) -> torch.Tensor:

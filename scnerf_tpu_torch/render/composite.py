@@ -10,6 +10,24 @@ from __future__ import annotations
 import torch
 
 
+class _CumprodPositive(torch.autograd.Function):
+    """``torch.cumprod`` over the last axis of positive factors. Its backward
+    is the one ``torch.cumprod`` takes when no factor is zero, ``reversed
+    cumsum(grad * out) / x``, without first asking the device whether one is
+    (a read-back that stalls the host twice a train step)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        out = torch.cumprod(x, dim=-1)
+        ctx.save_for_backward(x, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, out = ctx.saved_tensors
+        return torch.flip(torch.cumsum(torch.flip(grad * out, [-1]), dim=-1), [-1]) / x
+
+
 def raw2outputs(
     raw: torch.Tensor,
     z_vals: torch.Tensor,
@@ -45,7 +63,7 @@ def raw2outputs(
         raise ValueError(sigma_activation)
 
     alpha = 1.0 - torch.exp(-sigma * dists)
-    trans = torch.cumprod(1.0 - alpha + 1e-10, dim=-1)
+    trans = _CumprodPositive.apply(1.0 - alpha + 1e-10)  # factors >= 1e-10
     trans = torch.cat([torch.ones_like(trans[..., :1]), trans[..., :-1]], dim=-1)
     weights = alpha * trans
 

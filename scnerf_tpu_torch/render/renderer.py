@@ -39,6 +39,8 @@ class RenderConfig:
 
 
 def _per_ray(x, n: int, device) -> torch.Tensor:
+    if isinstance(x, (int, float)):  # filled on the device: no copy to wait for
+        return torch.full((n,), float(x), device=device)
     return torch.as_tensor(x, dtype=torch.float32, device=device).expand(n)
 
 

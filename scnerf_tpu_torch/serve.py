@@ -23,20 +23,28 @@ from scnerf_tpu_torch.render.renderer import pad_edge, render_rays
 
 
 @contextlib.contextmanager
-def fp32_inference():
-    """Inference in full float32, as the JAX reference computes: TF32 off
-    for matmuls and cuDNN for the block, the caller's flags restored after
-    (TF32 keeps about three decimal digits)."""
+def fp32():
+    """Full float32, as the JAX reference computes: TF32 off for matmuls
+    and cuDNN for the block, the caller's flags restored after (TF32 keeps
+    about three decimal digits). The serve functions and the train step run
+    under it."""
     matmul = torch.backends.cuda.matmul.allow_tf32
     cudnn = torch.backends.cudnn.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     try:
-        with torch.inference_mode():
-            yield
+        yield
     finally:
         torch.backends.cuda.matmul.allow_tf32 = matmul
         torch.backends.cudnn.allow_tf32 = cudnn
+
+
+@contextlib.contextmanager
+def fp32_inference():
+    """:func:`fp32` under ``inference_mode``: the serve functions'
+    context."""
+    with fp32(), torch.inference_mode():
+        yield
 
 
 def make_nerf_serve_fn(

@@ -19,12 +19,19 @@ from scnerf_tpu.fields.nerfpp import NerfPPConfig as JNerfPPConfig  # noqa: E402
 from scnerf_tpu.fields.nerfpp import init_nerfpp_net as j_init_nerfpp_net  # noqa: E402
 from scnerf_tpu.render.nerfpp_renderer import NerfPPRenderConfig as JNerfPPRenderConfig  # noqa: E402
 from scnerf_tpu.render.renderer import RenderConfig as JRenderConfig  # noqa: E402
+from scnerf_tpu.train.curriculum import Curriculum as JCurriculum  # noqa: E402
+from scnerf_tpu.train.step import TrainConfig as JTrainConfig  # noqa: E402
 from scnerf_tpu_torch import bridge  # noqa: E402
-from scnerf_tpu_torch.camera.model import CameraConfig  # noqa: E402
+from scnerf_tpu_torch.camera.model import (  # noqa: E402
+    CAMERA_LEAVES, CameraConfig, trainable_camera,
+)
 from scnerf_tpu_torch.fields.nerf import NeRFConfig, init_nerf_mlp  # noqa: E402
 from scnerf_tpu_torch.fields.nerfpp import NerfPPConfig  # noqa: E402
 from scnerf_tpu_torch.render.nerfpp_renderer import NerfPPRenderConfig  # noqa: E402
 from scnerf_tpu_torch.render.renderer import RenderConfig  # noqa: E402
+from scnerf_tpu_torch.train.curriculum import Curriculum  # noqa: E402
+from scnerf_tpu_torch.train.optim import named_leaves  # noqa: E402
+from scnerf_tpu_torch.train.step import TrainConfig  # noqa: E402
 
 SMALL = dict(depth=3, width=32, skips=(1,), multires=4, multires_views=2)
 SMALL_PP = dict(depth=3, width=32, skips=(1,), max_freq_log2=4, max_freq_log2_viewdirs=2)
@@ -120,6 +127,10 @@ class TestConfigs:
         (JNerfPPConfig, NerfPPConfig, SMALL_PP),
         (JNerfPPRenderConfig, NerfPPRenderConfig,
          dict(cascade_samples=(64, 128), perturb=False, pdf_impl="pallas_vjp")),
+        (JTrainConfig, TrainConfig, dict(lr_init=1e-3, use_ndc=True, near=0.5,
+                                         prd_method="NeRF++", prd_threshold=3.0)),
+        (JCurriculum, Curriculum, dict(add_ie=3, add_od=7, add_prd=2, i_ray_dist_loss=5,
+                                       prd_anneal_until=9, ray_dist_loss_weight_after=1e-5)),
     ])
     def test_round_trip(self, jax_cls, port_cls, kwargs):
         jcfg = jax_cls(**kwargs)
@@ -153,3 +164,43 @@ class TestConfigs:
                                  pdf_impl="pallas_stopgrad")
         assert bridge.convert_config(jr, NerfPPRenderConfig) == NerfPPRenderConfig(
             cascade_samples=(64, 128), pdf_impl="pallas_stopgrad")
+
+
+class TestTrainParams:
+    def _jax_tree(self, camera=True):
+        k = jax.random.key(0)
+        tree = {"coarse": j_init_nerf_mlp(k, JNeRFConfig(**SMALL)),
+                "fine": j_init_nerf_mlp(jax.random.fold_in(k, 1), JNeRFConfig(**SMALL))}
+        if camera:
+            tree["camera"] = _jax_camera()
+        return jax.tree.map(np.asarray, tree)
+
+    @pytest.mark.parametrize("camera", [True, False])
+    def test_round_trip_exact_with_grad_flags(self, camera):
+        np_tree = self._jax_tree(camera)
+        port = bridge.train_params_to_torch(np_tree, device="cpu")
+        assert set(port) == set(np_tree)
+        for net in ("coarse", "fine"):
+            leaves = named_leaves(port[net]).values()
+            assert len(leaves) == 2 * (SMALL["depth"] + 4)
+            assert all(x.requires_grad and x.is_leaf for x in leaves)
+        back = bridge.train_params_to_numpy(port)
+        for net in ("coarse", "fine"):
+            _assert_trees_equal(back[net], np_tree[net])
+        if camera:
+            cam = port["camera"]
+            for name in ("intrinsics_init", "extrinsics_init", "distortion_init"):
+                assert not getattr(cam, name).requires_grad
+            for name in ("intrinsics_noise", "extrinsics_noise", "distortion_noise",
+                         "ray_o_grid", "ray_d_grid"):
+                assert getattr(cam, name).requires_grad and getattr(cam, name).is_leaf
+            assert set(back["camera"]) == set(CAMERA_LEAVES)
+            _assert_trees_equal(np_tree["camera"].replace(**back["camera"]), np_tree["camera"])
+
+    def test_trainable_camera_copies(self):
+        """The trainable copy shares no storage with the camera it came from."""
+        cam = bridge.camera_from_numpy(jax.tree.map(np.asarray, _jax_camera()), device="cpu")
+        trainable = trainable_camera(cam)
+        with torch.no_grad():
+            trainable.ray_o_grid.add_(1.0)
+        assert not torch.equal(trainable.ray_o_grid, cam.ray_o_grid)

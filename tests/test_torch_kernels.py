@@ -311,7 +311,8 @@ class TestBuild:
 # The port's entry points run on the card unless the caller asks for the CPU.
 ENTRY_POINTS = [camera_model.init_camera, nerf.init_nerf_mlp, nerfpp.init_mlpnet,
                 nerfpp.init_nerfpp_net, mlp.init_dense, bridge.tree_to_torch,
-                bridge.camera_from_numpy, rays.full_image_pixels]
+                bridge.camera_from_numpy, bridge.train_params_to_torch,
+                rays.full_image_pixels]
 
 
 @pytest.mark.parametrize("fn", ENTRY_POINTS, ids=lambda fn: fn.__name__)
@@ -464,8 +465,9 @@ def test_package_imports_no_jax():
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, 'scnerf_tpu_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'scnerf_tpu.')) or m == 'scnerf_tpu')\n"
-        "assert len(names) >= 15, names\n"
-        "assert {'scnerf_tpu_torch.kernels.mlp_cuda', 'scnerf_tpu_torch.kernels.searchsorted_cuda'} <= set(names), names\n"
+        "assert len(names) >= 35, names\n"
+        "assert {'scnerf_tpu_torch.kernels.mlp_cuda', 'scnerf_tpu_torch.kernels.searchsorted_cuda',\n"
+        "        'scnerf_tpu_torch.losses.prd', 'scnerf_tpu_torch.train.step'} <= set(names), names\n"
         "assert not bad, bad\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
