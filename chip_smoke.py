@@ -1,5 +1,5 @@
-"""Drive the PyTorch port's NeRF and NeRF++ serving paths and its NeRF
-train step once on an NVIDIA card.
+"""Drive the PyTorch port's NeRF and NeRF++ serving paths and its NeRF and
+NeRF++ train steps once on an NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -111,16 +111,55 @@ the JAX package. Phases, each of which exits non-zero when it fails:
     the whole step, in its backward only and in PRD's forward only must each
     break a limit. The grids' backward accumulates in an order the card does
     not fix: an L2 limit, not an elementwise one.
+13. The NeRF++ train step at Tanks&Temples width, bench.py's
+    ``_nerfpp_throughput`` workload: fg and bg MLPNets 8x256, multires 10/4,
+    cascade 64,64, N_rand 2048, ``perturb=True``, bench.py's learnable
+    OpenCV camera (546x980, focal 580, 12 images inside the unit sphere,
+    multiplicative intrinsics noise) at its initial values, Adam as
+    ``build_nerfpp_experiment`` builds it (decay 750e3, lr floor 1% of
+    5e-4), ``Curriculum()``, batches drawn on the card by
+    ``make_nerfpp_device_sampling_step`` from 12 seeded random images.
+    Every loss finite; first-step gradients finite and nonzero but
+    ``distortion_noise``'s; the ``*_init`` leaves bit-unchanged; K2
+    launched twice a step, once with the CDF; no call waits for the device.
+    ms a step and train rays/s by CUDA events over 20 steps after 3, peak
+    memory, the profile (K2's forward in the sample_pdf group, its backward
+    as the ``sample_pdf_diff_backward`` range), K2 held to its plain twin
+    on the fg and bg inputs one step hands it (values, and the fg bins'
+    gradient, with phase 5's limits) and its forward with the CDF and its
+    backward timed by events on them; 30 steps on one fixed batch must
+    bring the loss below the first step's.
+14. bench.py's fisheye camera (radial k = (-0.1, 0.03), tied ray noise)
+    with the distortion-aware PRD every step (``prd_undistort``) on 50
+    matches: points along image 0's rays through the initial camera,
+    projected into image 1 and taken back through the inverse warp. Finite
+    loss and gradients, ``distortion_noise``'s gradient nonzero in the step
+    and PRD's nonzero through the inverse-distortion lookup alone;
+    ``prd_matches`` and ms a step printed.
+15. One NeRF++ step on the card against the CPU port at full width, 256
+    rays, the same params and injected randoms: without PRD, with the
+    distortion-aware PRD on the fisheye camera, and with autoexpo and a
+    mask. K2's outputs on the two devices may differ by a flip (phase 5's
+    share holds them), and a ReLU whose pre-activation lies within rounding
+    of 0 may take the other side (``KINK``); the CPU step takes the card's
+    resampled depths and the card's side at such kinks, and every flipped
+    pre-activation must lie within ``KINK`` of 0. Loss within relative
+    1e-5; each leaf's gradient within relative L2 1e-4 or, where larger,
+    the CPU's own spread, the largest change of its gradient over four CPU
+    steps with one-ulp moves of the level-0 samples (two) and of the rays
+    (two: the camera's initial intrinsics, poses and distortion). Control:
+    TF32 on in the step must break a limit.
 
-Each serving path, each of K3's and K4's own paths and the train path run
+Each serving path, each of K3's and K4's own paths and each train path run
 with the kernels' launch counts set to 0 just before and read just after. The
 line before the last is one JSON object with the kernels' numbers, each with
 the least time the card could take for its work (``bound_ms``: bytes over
 3.35 TB/s or operations over the peak of the unit the kernel uses, float32
 at 67 TFLOP/s or, for K3, three TF32 passes at 495 TFLOP/s; the larger), K1's
-with its launches on the train path too, and the train metrics; the line
-before it is the card's name and power limit; the last line is
-``{"ok": true, "device": {...}}``.
+and K2's with their launches on the train paths too (K2's with its shape,
+error, times and bound on the NeRF++ train step's inputs), the train
+metrics and the script's wall time; the line before it is the card's name
+and power limit; the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -158,6 +197,7 @@ PP_SHAPES = ((PP_BATCH, 63, 128), (PP_BATCH, 62, 128), (PP_BATCH, 64, 128))
 PP_RAGGED = ((1, 2, 1), (5, 17, 33), (1027, 63, 100))
 PP_PIXEL_REQUESTS = (1000, 65536)
 PP_CPU_RAYS = 512
+PP_FISHEYE_K = (-0.1, 0.03)  # bench.py's fisheye camera
 
 SOURCES = ("searchsorted", "fused_mlp")  # K4 and K3, through ctypes
 OPS_SOURCES = ("sample_pdf",)  # K1 and K2, registered operators
@@ -190,7 +230,7 @@ def reset_launches() -> None:
     """Every kernel's launch count to 0."""
     from scnerf_tpu_torch.kernels import mlp_cuda, pdf_cuda, searchsorted_cuda
 
-    pdf_cuda.launches = pdf_cuda.diff_launches = 0
+    pdf_cuda.launches = pdf_cuda.diff_launches = pdf_cuda.cdf_launches = 0
     mlp_cuda.launches = searchsorted_cuda.launches = 0
 
 
@@ -198,7 +238,8 @@ def launch_counts() -> dict:
     from scnerf_tpu_torch.kernels import mlp_cuda, pdf_cuda, searchsorted_cuda
 
     return {"K1": pdf_cuda.launches, "K2": pdf_cuda.diff_launches,
-            "K3": mlp_cuda.launches, "K4": searchsorted_cuda.launches}
+            "K2 with CDF": pdf_cuda.cdf_launches, "K3": mlp_cuda.launches,
+            "K4": searchsorted_cuda.launches}
 
 
 def require(ok: bool, what: str) -> None:
@@ -577,7 +618,6 @@ def phase_k2(dev):
 
 
 def make_nerfpp_slice(dev):
-    from scnerf_tpu_torch.camera import CameraConfig, OPENCV, init_camera
     from scnerf_tpu_torch.camera.model import get_extrinsics
     from scnerf_tpu_torch.fields.nerfpp import NerfPPConfig, init_nerfpp_net
     from scnerf_tpu_torch.render.nerfpp_renderer import NerfPPRenderConfig
@@ -588,17 +628,7 @@ def make_nerfpp_slice(dev):
     gen = torch.Generator().manual_seed(SEED + 3)
     levels = [init_nerfpp_net(model_cfg, PP_IMAGES, generator=gen, device=dev)
               for _ in PP_CASCADE]
-    rng = np.random.RandomState(3)
-    K = np.array([[PP_FOCAL, 0, PP_W / 2, 0], [0, PP_FOCAL, PP_H / 2, 0],
-                  [0, 0, 1, 0], [0, 0, 0, 1]])
-    axis = rng.randn(PP_IMAGES, 3)
-    axis /= np.linalg.norm(axis, axis=1, keepdims=True)
-    E = np.tile(np.eye(4), (PP_IMAGES, 1, 1))
-    E[:, :3, :3] = rodrigues(axis, rng.rand(PP_IMAGES) * 0.3)
-    E[:, :3, 3] = rng.randn(PP_IMAGES, 3) * 0.2
-    cfg = CameraConfig(H=PP_H, W=PP_W, convention=OPENCV, pixel_offset=0.5,
-                       multiplicative_noise=True)
-    camera = init_camera(K, E, cfg, device=dev)
+    camera = nerfpp_camera(dev)
     # A camera as calibration leaves it: every learnable leaf non-zero (the
     # intrinsics noise is relative here: 1% of each of fx, fy, cx, cy).
     for name, scale in (("intrinsics_noise", 0.01), ("extrinsics_noise", 0.5),
@@ -608,6 +638,27 @@ def make_nerfpp_slice(dev):
     centres = torch.linalg.vector_norm(get_extrinsics(camera)[:, :3, 3], dim=-1)
     require(float(centres.max()) < 1.0, f"a camera lies outside the unit sphere: {centres}")
     return model_cfg, render_cfg, levels, camera
+
+
+def nerfpp_camera(device, *, fisheye: bool = False):
+    """bench.py's NeRF++ camera at its initial values: OpenCV (pixel offset
+    0.5) at 546x980, focal 580, 12 seeded poses inside the unit sphere,
+    multiplicative intrinsics noise; with ``fisheye`` its distortion variant
+    (radial k = (-0.1, 0.03), tied ray noise)."""
+    from scnerf_tpu_torch.camera import CameraConfig, OPENCV, init_camera
+
+    rng = np.random.RandomState(3)
+    K = np.array([[PP_FOCAL, 0, PP_W / 2, 0], [0, PP_FOCAL, PP_H / 2, 0],
+                  [0, 0, 1, 0], [0, 0, 0, 1]])
+    axis = rng.randn(PP_IMAGES, 3)
+    axis /= np.linalg.norm(axis, axis=1, keepdims=True)
+    E = np.tile(np.eye(4), (PP_IMAGES, 1, 1))
+    E[:, :3, :3] = rodrigues(axis, rng.rand(PP_IMAGES) * 0.3)
+    E[:, :3, 3] = rng.randn(PP_IMAGES, 3) * 0.2
+    cfg = CameraConfig(H=PP_H, W=PP_W, convention=OPENCV, pixel_offset=0.5,
+                       multiplicative_noise=True, use_distortion=fisheye,
+                       tied_ray_noise=fisheye)
+    return init_camera(K, E, cfg, k=np.array(PP_FISHEYE_K) if fisheye else None, device=device)
 
 
 def phase_nerfpp_slice(dev, card, slice_):
@@ -961,7 +1012,7 @@ def time_steps(run_step, state, n: int):
 
 
 KERNEL_GROUPS = (  # (group, substrings of the kernel name), first match wins
-    ("K1 sample_pdf", ("sample_pdf",)),
+    ("K1/K2 sample_pdf", ("sample_pdf",)),
     ("GEMMs", ("gemm", "gemv", "cutlass", "xmma", "cublas", "sm90_", "ampere_")),
     ("ReLU and its backward", ("threshold", "relu", "clamp_min")),
     ("concatenation and copies", ("cat", "copy")),
@@ -971,6 +1022,9 @@ KERNEL_GROUPS = (  # (group, substrings of the kernel name), first match wins
     ("index, gather, scatter", ("index", "gather", "scatter")),
     ("other elementwise", ("elementwise", "vectorized", "unrolled", "foreach")),
 )
+
+
+PROFILE_RANGES = ("sample_pdf_diff_backward",)  # kernels/pdf_cuda.py's K2 backward
 
 
 def profile_steps(run_step, state, n: int = TRAIN_PROFILED):
@@ -988,9 +1042,11 @@ def profile_steps(run_step, state, n: int = TRAIN_PROFILED):
         torch.cuda.synchronize()
         window_ms = (time.perf_counter() - t0) * 1e3
     events = prof.key_averages()
+    # A profiler range also shows as a device event spanning its kernels: it
+    # is read below, apart from the kernels.
     kernels = [(e.key, e.count, e.self_device_time_total / 1e3) for e in events
                if e.device_type == torch.autograd.DeviceType.CUDA
-               and e.self_device_time_total > 0]
+               and e.self_device_time_total > 0 and e.key not in PROFILE_RANGES]
     require(bool(kernels), "the profiler saw no device time in the train step")
     # The host's calls into the CUDA runtime, a step: launches, copies and
     # waits for the device.
@@ -1006,8 +1062,15 @@ def profile_steps(run_step, state, n: int = TRAIN_PROFILED):
         groups[group] = groups.get(group, 0.0) + ms / n
     top = sorted(kernels, key=lambda k: -k[2])[:8]
     launches = sum(count for _, count, _ in kernels) / n
+    # The device time of the kernels launched inside each profiler range
+    # (K2's backward is PyTorch ops: no kernel of its own names it).
+    ranges = {e.key: (e.count / n, e.device_time_total / 1e3 / n) for e in events
+              if e.device_type == torch.autograd.DeviceType.CPU and e.key in PROFILE_RANGES}
+    resamplers = [(key, count / n, ms / n) for key, count, ms in kernels
+                  if "sample_pdf" in key.lower()]
     return state, dict(groups=groups, top=top, ops=ops, kernels_a_step=launches,
-                       runtime_a_step=runtime, window_ms_a_step=window_ms / n)
+                       runtime_a_step=runtime, window_ms_a_step=window_ms / n, ranges=ranges,
+                       resamplers=resamplers)
 
 
 def sync_sites(run_step, state):
@@ -1045,6 +1108,11 @@ def print_profile(profile, step_ms: float, n: int = TRAIN_PROFILED):
           + ", ".join(f"{k} {v:g}" for k, v in sorted(profile["runtime_a_step"].items())))
     for group, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
         print(f"    {group}: {ms:.3f} ms a step ({ms / busy:.2%})")
+    for key, count, ms in profile["resamplers"]:
+        print(f"    kernel {ms:.4f} ms a step x{count:g} ({ms / count:.5f} ms a launch): {key[:90]}")
+    for key, (count, ms) in profile["ranges"].items():
+        print(f"    range {key}: {ms:.3f} ms a step of device time ({ms / busy:.2%}), "
+              f"x{count:g} a step (its kernels also counted in the groups above)")
     for key, count, ms in top:
         print(f"    kernel {ms / n:.3f} ms a step x{count / n:g}: {key[:90]}")
     print("    most frequent operators a step: "
@@ -1233,6 +1301,32 @@ def tf32_on():
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = old
 
 
+def rel_l2(got, want) -> float:
+    """Relative L2 error of ``got`` against ``want`` (``|got|`` if ``want``
+    is zero: a lost gradient reads 1)."""
+    norm = float(want.norm())
+    return float((got - want).norm()) / norm if norm > 0 else float(got.norm())
+
+
+def over_limits(m, g, cpu_m, cpu_g, limits):
+    """A card step's metrics and gradients against the CPU's: (relative loss
+    error, rows (error / limit, path, error, limit), the worst first)."""
+    rel_loss = abs(m["loss"] - cpu_m["loss"]) / abs(cpu_m["loss"])
+    rows = []
+    for path, g_cpu in cpu_g.items():
+        if g_cpu is None or g[path] is None:
+            require(g_cpu is None and g[path] is None, f"{path}: a gradient on one side only")
+            continue
+        rel = rel_l2(g[path], g_cpu)
+        rows.append((rel / limits[path], path, rel, limits[path]))
+    return rel_loss, sorted(rows, reverse=True)
+
+
+def one_ulp_moves(rng, x: np.ndarray) -> np.ndarray:
+    """``x`` with each entry moved by one ulp, up or down at random."""
+    return (x + np.where(rng.random(x.shape) < 0.5, -1.0, 1.0) * np.spacing(x)).astype(x.dtype)
+
+
 def phase_train_cpu_agreement(dev, slice_):
     """Phase 12: one train step on the card against the CPU port, the same
     params and injected randoms: without PRD, with PRD, and with PRD on
@@ -1287,10 +1381,6 @@ def phase_train_cpu_agreement(dev, slice_):
     cases = {"without PRD": batch, "with PRD": prd_batch,
              "with PRD, rays given": rays_batch}
 
-    def to(b, device):
-        return {k: to(v, device) if isinstance(v, dict) else torch.from_numpy(v).to(device)
-                for k, v in b.items()}
-
     def one_step(device, b, tf32=None, camera_=None):
         """The metrics and gradients (on the CPU) of one step on ``device``;
         ``tf32`` turns TF32 on there, as a control: in the whole "step", in
@@ -1316,7 +1406,7 @@ def phase_train_cpu_agreement(dev, slice_):
         elif tf32 == "PRD":
             step_module.prd_loss = under_tf32(prd)
         try:
-            _, metrics = step(state, to(b, device))
+            _, metrics = step(state, to_device(b, device))
         finally:
             step_module.fp32, torch.autograd.grad, step_module.prd_loss = fp32, grad, prd
         launched = pdf_cuda.launches - before
@@ -1324,22 +1414,6 @@ def phase_train_cpu_agreement(dev, slice_):
                 f"K1 launched {launched} times in one {device.type} train step")
         return ({k: float(v) for k, v in metrics.items()},
                 {k: None if g is None else g.cpu() for k, g in optimizer.grads.items()})
-
-    def rel_l2(got, want):
-        norm = float(want.norm())
-        return float((got - want).norm()) / norm if norm > 0 else float(got.norm())
-
-    def over_limits(m, g, cpu_m, cpu_g, limits):
-        """(relative loss error, rows (error / limit, path, error, limit))."""
-        rel_loss = abs(m["loss"] - cpu_m["loss"]) / abs(cpu_m["loss"])
-        rows = []
-        for path, g_cpu in cpu_g.items():
-            if g_cpu is None or g[path] is None:
-                require(g_cpu is None and g[path] is None, f"{path}: a gradient on one side only")
-                continue
-            rel = rel_l2(g[path], g_cpu)
-            rows.append((rel / limits[path], path, rel, limits[path]))
-        return rel_loss, sorted(rows, reverse=True)
 
     depth = TRAIN_NEAR + (TRAIN_FAR - TRAIN_NEAR) * np.arange(s) / (s - 1)
     dt = np.spacing(depth.astype(np.float32)) / ((TRAIN_FAR - TRAIN_NEAR) / (s - 1))
@@ -1354,11 +1428,10 @@ def phase_train_cpu_agreement(dev, slice_):
             nudged = {**b, "rands": {**b["rands"], "t": np.clip(
                 t + ups(t) * dt, 0.0, 1.0).astype(np.float32)}}
             return one_step(torch.device("cpu"), nudged)[1]
-        nudged = {**b, **{k: (b[k] + ups(b[k]) * np.spacing(b[k])).astype(np.float32)
-                          for k in ("kps0", "kps1")}}
+        nudged = {**b, **{k: one_ulp_moves(rng, b[k]) for k in ("kps0", "kps1")}}
         leaves = bridge.camera_to_numpy(camera)
         for k in ("intrinsics_init", "extrinsics_init"):
-            leaves[k] = (leaves[k] + ups(leaves[k]) * np.spacing(leaves[k])).astype(np.float32)
+            leaves[k] = one_ulp_moves(rng, leaves[k])
         nudged_camera = bridge.camera_from_numpy({**leaves, "config": camera.config},
                                                  device="cpu")
         return one_step(torch.device("cpu"), nudged, camera_=nudged_camera)[1]
@@ -1421,6 +1494,534 @@ def phase_train_cpu_agreement(dev, slice_):
                     f"{case}: TF32 on in the {tf32} passes the limits")
 
 
+# NeRF++ training, bench.py's _nerfpp_throughput (the Tanks&Temples
+# workload): fg and bg MLPNets 8x256, multires 10/4, cascade 64,64, N_rand
+# 2048, perturb, bench.py's learnable OpenCV camera at its initial values,
+# Adam as build_nerfpp_experiment builds it (decay 750e3, lr floor 1% of
+# 5e-4), Curriculum().
+PP_TRAIN_RAYS = 2048
+PP_TRAIN_CASCADE = (64, 64)
+PP_TRAIN_WARMUP = 3
+PP_TRAIN_TIMED = 20
+PP_PRD_MATCHES = 50
+PP_CPU_TRAIN_RAYS = 256
+
+
+def nerfpp_train_setup(device, *, fisheye=False, autoexpo=False, with_prd=False,
+                       curriculum=None, camera=None):
+    """(step function, its recording optimizer, a fresh train state) for the
+    NeRF++ train workload on ``device``: seeded weights, made on the CPU and
+    copied through numpy as the bridge carries JAX's, so that every device
+    starts from the same bits; ``camera`` (on the CPU) in place of the
+    workload's initial one."""
+    from scnerf_tpu_torch import bridge
+    from scnerf_tpu_torch.fields.nerfpp import NerfPPConfig, init_nerfpp_net
+    from scnerf_tpu_torch.render.nerfpp_renderer import NerfPPRenderConfig
+    from scnerf_tpu_torch.train.curriculum import Curriculum
+    from scnerf_tpu_torch.train.nerfpp_step import NerfPPTrainConfig, make_nerfpp_train_step
+    from scnerf_tpu_torch.train.optim import Optimizer
+    from scnerf_tpu_torch.train.step import create_train_state
+
+    model_cfg = NerfPPConfig()  # 8x256, skip (4,), max_freq_log2 10/4
+    render_cfg = NerfPPRenderConfig(cascade_samples=PP_TRAIN_CASCADE, perturb=True)
+    train_cfg = NerfPPTrainConfig(lr_init=5e-4, lr_decay_steps=750e3, autoexpo=autoexpo,
+                                  prd_undistort=fisheye)
+    gen = torch.Generator().manual_seed(SEED + 13)
+    levels = [init_nerfpp_net(model_cfg, PP_IMAGES, autoexpo=autoexpo, generator=gen,
+                              device="cpu") for _ in PP_TRAIN_CASCADE]
+    camera = camera or nerfpp_camera("cpu", fisheye=fisheye)
+    tree = bridge.train_params_to_torch({
+        "levels": bridge.tree_to_numpy(levels),
+        "camera": {**bridge.camera_to_numpy(camera), "config": camera.config},
+    }, device=device)
+    optimizer = RecordingOptimizer(Optimizer.from_config(train_cfg,
+                                                         lr_floor=0.01 * train_cfg.lr_init))
+    step = make_nerfpp_train_step(model_cfg, render_cfg, train_cfg, curriculum or Curriculum(),
+                                  optimizer, with_prd=with_prd)
+    return step, optimizer, create_train_state(tree, optimizer)
+
+
+def nerfpp_matches(rng, camera, n: int):
+    """``n`` matches between images 0 and 1 of the initial ``camera`` (on
+    the CPU): integer pixels of image 0, their rays through the camera (the
+    distortion warp included), points 1.5 to 4 units along them, projected
+    into image 1 by the pinhole and, with distortion, taken back through the
+    inverse of the warp (the keypoint's ray passes through the warped pixel
+    ``kp + 0.5``); a third of a pixel of noise. Only points in front of
+    image 1 and inside it are kept."""
+    from scnerf_tpu_torch.camera import get_distortion, get_extrinsics, get_intrinsic
+    from scnerf_tpu_torch.camera import pixels_to_rays
+
+    m = 20 * n
+    px = rng.integers(0, PP_W, m).astype(np.float32)
+    py = rng.integers(0, PP_H, m).astype(np.float32)
+    with torch.no_grad():
+        o, d = pixels_to_rays(camera, torch.from_numpy(px), torch.from_numpy(py), image_idx=0)
+        pts = (o + d * torch.from_numpy(rng.uniform(1.5, 4.0, (m, 1)).astype(np.float32)))
+        w2c = torch.linalg.inv(get_extrinsics(camera)[1])
+        cam = (pts @ w2c[:3, :3].T + w2c[:3, 3]).double().numpy()
+        K = get_intrinsic(camera).double().numpy()
+        k = get_distortion(camera).double().numpy()
+    uv = np.stack([K[0, 0] * cam[:, 0] / cam[:, 2] + K[0, 2],
+                   K[1, 1] * cam[:, 1] / cam[:, 2] + K[1, 2]], -1)
+    if camera.config.use_distortion:
+        for axis, L in ((0, PP_W), (1, PP_H)):
+            grid = np.linspace(-L, 2 * L, 200001)
+            c = (grid - L / 2) / (L / 2)
+            uv[:, axis] = np.interp(uv[:, axis], (1 + k[0] * c**2 + k[1] * c**4)
+                                    * (grid - L / 2) + L / 2, grid)
+    kps1 = uv - 0.5 + rng.normal(size=uv.shape) * 0.3
+    keep = (cam[:, 2] > 0.1) & (kps1 >= 0).all(-1) & (kps1[:, 0] < PP_W) & (kps1[:, 1] < PP_H)
+    require(keep.sum() >= n, f"only {keep.sum()} of {m} points project into image 1")
+    kps0 = np.stack([px, py], -1)[keep][:n].astype(np.float32)
+    return {"kps0": kps0, "kps1": kps1[keep][:n].astype(np.float32),
+            "kp_mask": np.ones(n, bool), "pair_idx": np.array([0, 1])}
+
+
+def to_device(batch, device):
+    """Nested dicts/lists/tuples of numpy values -> tensors on ``device``."""
+    if isinstance(batch, dict):
+        return {k: to_device(v, device) for k, v in batch.items()}
+    if isinstance(batch, (list, tuple)):
+        return type(batch)(to_device(v, device) for v in batch)
+    return torch.from_numpy(np.asarray(batch)).to(device)
+
+
+@contextlib.contextmanager
+def recorded_resamples(calls: list, values: list | None = None):
+    """Within the block, each K2 call of the NeRF++ renderer is appended to
+    ``calls`` as (bins, weights, u, depths). With ``values``, the i-th call
+    hands the renderer ``values[i]`` in place of its depths (its gradient
+    stays the call's own)."""
+    from scnerf_tpu_torch.render import nerfpp_renderer
+
+    diff = nerfpp_renderer.sample_pdf_diff
+
+    def recording(bins, weights, u, variant="nerfpp"):
+        out = diff(bins, weights, u, variant)
+        calls.append((bins, weights, u, out))
+        if values is not None:
+            out = out + (values[len(calls) - 1].to(out.device) - out).detach()
+        return out
+
+    nerfpp_renderer.sample_pdf_diff = recording
+    try:
+        yield
+    finally:
+        nerfpp_renderer.sample_pdf_diff = diff
+
+
+# |pre-activation| under which the card's and the CPU's float32 roundings may
+# put a ReLU (or the sigma head's abs) on opposite sides of its kink. At
+# multires 10, sin(2^9 x) turns an ulp of a point into a few 1e-5 of a
+# feature, and a layer sums 256 of them: the two devices' pre-activations
+# may differ by up to about 1e-4, while most lie between 1e-2 and 1.
+KINK = 1e-3
+
+
+@contextlib.contextmanager
+def kink_sides(seen: list, card: list | None = None):
+    """Within the block, each dense layer of the NeRF++ field appends to
+    ``seen`` its output entries within ``KINK`` of 0, as (flat indices,
+    values) on the CPU. With ``card`` (the card's ``seen`` of the same step,
+    call for call), an entry that the card put on the other side of 0 takes
+    the card's value (its gradient stays this step's own), so that both
+    devices' ReLUs and abs take the same side; ``seen`` then gets (flat
+    indices, the CPU's values, the card's values) of those entries."""
+    from scnerf_tpu_torch.fields import nerfpp
+
+    dense = nerfpp.dense
+
+    def sided(params, x):
+        y = dense(params, x)
+        flat = y.detach().reshape(-1)
+        if card is None:
+            idx = torch.nonzero(flat.abs() < KINK).flatten()
+            seen.append((idx.cpu(), flat[idx].cpu()))
+            return y
+        idx, theirs = card[len(seen)]
+        mine = flat[idx]
+        flip = (mine > 0) != (theirs > 0)
+        seen.append((idx[flip], mine[flip], theirs[flip]))
+        delta = torch.zeros_like(flat)
+        delta[idx[flip]] = theirs[flip] - mine[flip]
+        return y + delta.reshape(y.shape)
+
+    nerfpp.dense = sided
+    try:
+        yield
+    finally:
+        nerfpp.dense = dense
+
+
+def k2_on_train_inputs(dev, calls):
+    """K2 against its plain twin on the (bins, weights, u) one NeRF++ train
+    step hands it, with phase 5's limits: the fg call (bins requiring grad,
+    CDF saved) and the bg call (forward only); values, and the fg call's
+    gradients into its bins under a random cotangent. Then K2's forward and
+    its backward (``sample_pdf_diff_backward``, PyTorch ops) timed by events
+    on the fg inputs. Returns K2's train record."""
+    from scnerf_tpu_torch.kernels import pdf_cuda
+    from scnerf_tpu_torch.sampling.pdf import sample_pdf
+
+    require(len(calls) == 2, f"K2 called {len(calls)} times in one NeRF++ train step")
+    require(calls[0][0].requires_grad and not calls[1][0].requires_grad,
+            "the fg bins should require grad and the bg bins not")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 14)
+    record = {}
+    for name, (bins, weights, u, out) in zip(("fg", "bg"), calls):
+        n, b = bins.shape
+        s = u.shape[1]
+        bins_d = bins.detach()
+        with torch.no_grad():
+            plain = sample_pdf(None, bins_d, weights, s, u=u, variant="nerfpp")
+        med, mx, flips = check_resample(out.detach(), plain, bins_d, f"K2 {name} train step")
+        rows, samples = against_compare_and_count(bins_d, weights, u, "nerfpp",
+                                                  f"K2 {name} train step")
+        line = (f"  K2 {name} on one train step's inputs ({n},{b}) ({n},{b - 1}) ({n},{s}): "
+                f"median|err|={med:.3e} max|err|={mx:.3e} share>1e-4={flips:.2e}; CDF "
+                f"decreasing in {rows:.3e} of rows, count off compare-and-count in "
+                f"{samples:.3e} of samples")
+        if name == "fg":
+            cot = torch.randn(u.shape, generator=gen, device=dev)
+            leaf = bins_d.clone().requires_grad_()
+            gk, = torch.autograd.grad(pdf_cuda.sample_pdf_diff(leaf, weights, u) * cot, leaf,
+                                      torch.ones_like(u))
+            gp, = torch.autograd.grad(sample_pdf(None, leaf, weights, s, u=u, variant="nerfpp")
+                                      * cot, leaf, torch.ones_like(u))
+            frac = float(((gk - gp).abs() / (gp.abs().max() + 1e-8) > 1e-4).float().mean())
+            require(frac < 2e-3, f"K2 fg train step: gradient into bins, {frac} of entries off")
+            with torch.no_grad():
+                _, inds, cdf = pdf_cuda.sample_pdf_fwd(bins_d, weights, u, with_cdf=True)
+                fwd_ms = per_call_ms(lambda: pdf_cuda.sample_pdf_fwd(bins_d, weights, u,
+                                                                     with_cdf=True))
+                plain_ms = per_call_ms(lambda: sample_pdf(None, bins_d, weights, s, u=u,
+                                                          variant="nerfpp"))
+                bwd_ms = per_call_ms(lambda: pdf_cuda.sample_pdf_diff_backward(
+                    cot, bins_d, weights, u, inds, cdf, "nerfpp"))
+            # The forward with the CDF: reads bins, weights and u, writes the
+            # depths, the counts and the CDF.
+            bnd = bound(4 * (n * b + n * (b - 1) + 3 * n * s + n * b),
+                        n * s * (math.ceil(math.log2(b)) + 6) + 3 * n * (b - 1))
+            line += (f"; gradient into bins off in {frac:.2e} of entries; forward with CDF "
+                     f"{fwd_ms:.4f} ms by events (plain twin {plain_ms:.4f}, bound "
+                     f"{bnd['bound_ms']:.5f}), backward {bwd_ms:.4f} ms")
+            record = dict(train_shape=[n, b, s], train_max_abs_err=mx, train_ms=fwd_ms,
+                          train_plain_ms=plain_ms, train_bound_ms=bnd["bound_ms"],
+                          train_backward_ms=bwd_ms, train_grad_share_off=frac)
+        print(line)
+    return record
+
+
+def phase_nerfpp_train(dev, card):
+    """Phase 13: the NeRF++ train step at Tanks&Temples width, batches drawn
+    on the card."""
+    from scnerf_tpu_torch.camera import FROZEN_LEAVES
+    from scnerf_tpu_torch.train.device_sampling import (
+        make_nerfpp_device_sampling_step, sample_nerfpp_batch,
+    )
+
+    print("== phase 13: NeRF++ train step at Tanks&Temples width on the card")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    images = torch.rand((PP_IMAGES, PP_H, PP_W, 3), generator=gen, device=dev)
+    base, optimizer, state = nerfpp_train_setup(dev)
+    step = make_nerfpp_device_sampling_step(base, images, PP_TRAIN_RAYS)
+    camera = state.params["camera"]
+    frozen = {name: getattr(camera, name).clone() for name in FROZEN_LEAVES}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    reset_launches()
+    warm = []
+    for _ in range(PP_TRAIN_WARMUP):
+        state, m = step(state, gen)
+        warm.append(m)
+    state, timed, ms = time_steps(lambda s: step(s, gen), state, PP_TRAIN_TIMED)
+    steps = PP_TRAIN_WARMUP + PP_TRAIN_TIMED
+    counts = launch_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    print(f"  launches on the NeRF++ train path over {steps} steps: {counts}")
+    require(counts["K2"] == 2 * steps and counts["K2 with CDF"] == steps,
+            f"K2 launched {counts['K2']} times ({counts['K2 with CDF']} with the CDF) in "
+            f"{steps} steps; 2 a step, 1 of them with the CDF, expected")
+
+    losses = torch.stack([m["loss"] for m in warm + timed])
+    require(bool(torch.isfinite(losses).all()), "a NeRF++ train step's loss is not finite")
+    first = {}
+    for path, g in optimizer.grads.items():
+        if g is None:
+            first[path] = "none"
+            continue
+        require(bool(torch.isfinite(g).all()), f"first-step gradient of {path} not finite")
+        first[path] = "nonzero" if bool(g.abs().any()) else "zero"
+    zero = sorted(p for p, v in first.items() if v != "nonzero")
+    print(f"  first step: {len(first)} trainable leaves, gradients finite; without a "
+          f"nonzero gradient: {zero}")
+    require(zero == ["camera/distortion_noise"],
+            f"leaves without a nonzero first-step gradient: {zero}")
+    for name, x in frozen.items():
+        require(torch.equal(getattr(camera, name), x), f"the frozen {name} moved")
+    rays_per_s = PP_TRAIN_RAYS / ms * 1e3
+    print(f"  {ms:.3f} ms a step by CUDA events over {PP_TRAIN_TIMED} steps after "
+          f"{PP_TRAIN_WARMUP} warm-up steps: {rays_per_s:.1f} train rays/s ({card}); peak "
+          f"memory {peak_gib:.3f} GiB; loss first {float(losses[0]):.5f} last "
+          f"{float(losses[-1]):.5f}")
+
+    state, profile = profile_steps(lambda s: step(s, gen), state)
+    idle = print_profile(profile, ms)
+    backward = profile["ranges"].get("sample_pdf_diff_backward", (0.0, 0.0))
+    if backward[0] == 0.0:
+        print("  the profiler saw no sample_pdf_diff_backward range: K2's backward is timed "
+              "by events below")
+    state, sites = sync_sites(lambda s: step(s, gen), state)
+    print(f"  calls that wait for the device in one step: {sites or 'none'}")
+    require(not sites, f"the NeRF++ train step waits for the device at {sites}")
+
+    calls = []
+    with recorded_resamples(calls):
+        state, _ = step(state, gen)
+    k2 = k2_on_train_inputs(dev, calls)
+    del calls
+
+    # Descent on one fixed batch from fresh weights.
+    batch = sample_nerfpp_batch(images, gen, PP_TRAIN_RAYS)
+    base, _, fresh = nerfpp_train_setup(dev)
+    fixed = []
+    for _ in range(TRAIN_DESCENT + 1):
+        fresh, m = base(fresh, batch, gen)
+        fixed.append(m["loss"])
+    fixed = [float(x) for x in fixed]
+    print(f"  fixed batch: loss {fixed[0]:.5f} at the first step, {fixed[-1]:.5f} after "
+          f"{TRAIN_DESCENT} steps")
+    require(fixed[-1] < fixed[0], f"the loss on a fixed batch did not fall: {fixed}")
+    return k2, dict(nerfpp_train_launches=counts["K2"], nerfpp_train_cdf_launches=counts[
+        "K2 with CDF"], nerfpp_train_steps=steps, nerfpp_train_ms=ms,
+        nerfpp_train_rays_per_s=rays_per_s, nerfpp_train_peak_gib=peak_gib,
+        nerfpp_train_idle=idle, nerfpp_train_profile_ms=profile["groups"],
+        nerfpp_train_k2_backward_profile_ms=backward[1],
+        nerfpp_train_kernels_a_step=profile["kernels_a_step"])
+
+
+def prd_lookup_gradient(camera, batch):
+    """The gradient of the step's PRD term into ``distortion_noise`` through
+    the inverse-distortion lookup alone: the keypoints' rays, which the
+    distortion also warps, held fixed."""
+    from scnerf_tpu_torch.camera import (
+        get_distortion, get_extrinsic, get_intrinsic, pixels_to_rays,
+    )
+    from scnerf_tpu_torch.losses.prd import prd_loss
+    from scnerf_tpu_torch.serve import fp32
+
+    with fp32():
+        E = get_extrinsic(camera, batch["pair_idx"])
+        with torch.no_grad():
+            k0, k1 = torch.floor(batch["kps0"]), torch.floor(batch["kps1"])
+            r0 = pixels_to_rays(camera, k0[:, 0], k0[:, 1], c2w=E[0])
+            r1 = pixels_to_rays(camera, k1[:, 0], k1[:, 1], c2w=E[1])
+        prd, _ = prd_loss(batch["kps0"] + 0.5, batch["kps1"] + 0.5, r0, r1,
+                          get_intrinsic(camera).detach(), E.detach(), mask=batch["kp_mask"],
+                          method="NeRF++", distortion_k=get_distortion(camera),
+                          image_wh=(PP_W, PP_H))
+        return torch.autograd.grad(prd, camera.distortion_noise)[0]
+
+
+def phase_nerfpp_fisheye(dev, card):
+    """Phase 14: bench.py's fisheye camera with the distortion-aware PRD
+    every step."""
+    from scnerf_tpu_torch.train.curriculum import Curriculum
+
+    print("== phase 14: NeRF++ fisheye step with the distortion-aware PRD every step")
+    cur = Curriculum(add_prd=0, i_ray_dist_loss=1)
+    rng = np.random.default_rng(SEED + 14)
+    batch = {
+        "px": rng.integers(0, PP_W, PP_TRAIN_RAYS).astype(np.float32),
+        "py": rng.integers(0, PP_H, PP_TRAIN_RAYS).astype(np.float32),
+        "img_idx": np.asarray(0),
+        "target": rng.random((PP_TRAIN_RAYS, 3)).astype(np.float32),
+        "min_depth": np.full(PP_TRAIN_RAYS, 1e-4, np.float32),
+        **nerfpp_matches(rng, nerfpp_camera("cpu", fisheye=True), PP_PRD_MATCHES),
+    }
+    batch = to_device(batch, dev)
+    step, optimizer, state = nerfpp_train_setup(dev, fisheye=True, with_prd=True,
+                                                curriculum=cur)
+    state, first = step(state, batch, torch.Generator(device=dev).manual_seed(SEED + 14))
+    for path, g in optimizer.grads.items():
+        require(g is not None and bool(torch.isfinite(g).all()),
+                f"fisheye PRD step: {path} gradient missing or not finite")
+    g_dist = optimizer.grads["camera/distortion_noise"]
+    g_lookup = prd_lookup_gradient(nerfpp_train_setup(dev, fisheye=True)[2].params["camera"],
+                                   batch)
+    print(f"  prd_matches {float(first['prd_matches']):g} of {PP_PRD_MATCHES}, prd "
+          f"{float(first['prd']):.5f}, loss {float(first['loss']):.5f}; distortion_noise "
+          f"gradient {g_dist.tolist()}; PRD's gradient into it through the lookup alone "
+          f"{g_lookup.tolist()}")
+    require(float(first["prd_matches"]) > 0, "no valid match in the fisheye PRD step")
+    require(bool(g_dist.abs().all()) and bool(g_lookup.abs().all())
+            and bool(torch.isfinite(g_lookup).all()),
+            "distortion_noise got no gradient through the distortion-aware PRD")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 15)
+    for _ in range(PP_TRAIN_WARMUP - 1):
+        state, _ = step(state, batch, gen)
+    state, metrics, ms = time_steps(lambda s: step(s, batch, gen), state, PP_TRAIN_TIMED // 2)
+    losses = torch.stack([first["loss"]] + [m["loss"] for m in metrics])
+    require(bool(torch.isfinite(losses).all()), "a fisheye PRD step's loss is not finite")
+    rays_per_s = PP_TRAIN_RAYS / ms * 1e3
+    print(f"  {ms:.3f} ms a step by CUDA events over {PP_TRAIN_TIMED // 2} steps: "
+          f"{rays_per_s:.1f} train rays/s ({card})")
+    state, sites = sync_sites(lambda s: step(s, batch, gen), state)
+    print(f"  calls that wait for the device in one step: {sites or 'none'}")
+    return dict(nerfpp_fisheye_prd_ms=ms, nerfpp_fisheye_prd_rays_per_s=rays_per_s,
+                nerfpp_fisheye_prd_matches=float(first["prd_matches"]))
+
+
+def phase_nerfpp_train_cpu_agreement(dev):
+    """Phase 15: one NeRF++ train step on the card against the CPU port, the
+    same params and injected randoms: without PRD, with the distortion-aware
+    PRD on the fisheye camera, and with autoexpo and a mask; the control
+    with TF32 on in the step."""
+    from scnerf_tpu_torch.geometry.sphere import intersect_sphere
+    from scnerf_tpu_torch import bridge
+    from scnerf_tpu_torch.camera import FROZEN_LEAVES, pixels_to_rays
+    from scnerf_tpu_torch.kernels import pdf_cuda
+    from scnerf_tpu_torch.train import step as step_module
+    from scnerf_tpu_torch.train.curriculum import Curriculum
+
+    print("== phase 15: one NeRF++ train step on the card against the CPU port")
+    n, (s0, s1) = PP_CPU_TRAIN_RAYS, PP_TRAIN_CASCADE
+    cpu = torch.device("cpu")
+    rng = np.random.default_rng(SEED + 15)
+    batch = {
+        "px": rng.integers(0, PP_W, n).astype(np.float32),
+        "py": rng.integers(0, PP_H, n).astype(np.float32),
+        "img_idx": np.asarray(3),
+        "target": rng.random((n, 3)).astype(np.float32),
+        "min_depth": np.full(n, 1e-4, np.float32),
+        "rands": [tuple(rng.random((n, s0)).astype(np.float32) for _ in range(2)),
+                  tuple(rng.random((n, s1)).astype(np.float32) for _ in range(2))],
+    }
+    cases = {
+        "without PRD": (dict(), batch),
+        "distortion-aware PRD, fisheye": (
+            dict(fisheye=True, with_prd=True, curriculum=Curriculum(add_prd=0, i_ray_dist_loss=1)),
+            {**batch, **nerfpp_matches(rng, nerfpp_camera("cpu", fisheye=True), PP_PRD_MATCHES)}),
+        "autoexpo, mask": (dict(autoexpo=True),
+                           {**batch, "mask": (rng.random(n) < 0.7).astype(np.float32)}),
+    }
+
+    def one_step(device, b, spec, tf32=False, card=None, camera=None):
+        """The metrics, gradients (on the CPU), K2 outputs and kink entries
+        (:func:`kink_sides`) of one step on ``device``; ``tf32`` turns TF32
+        on in the step (the control); ``card``, the K2 outputs and kink
+        entries of the card's step, take the place of this step's own
+        depths and kink sides; ``camera`` (initial values) that of the
+        workload's."""
+        step, optimizer, state = nerfpp_train_setup(device, camera=camera, **spec)
+        before = pdf_cuda.diff_launches
+        calls, kinks = [], []
+        depths, card_kinks = card if card is not None else (None, None)
+        fp32 = step_module.fp32
+        if tf32:
+            step_module.fp32 = tf32_on
+        try:
+            with recorded_resamples(calls, depths), kink_sides(kinks, card_kinks):
+                _, metrics = step(state, to_device(b, device))
+        finally:
+            step_module.fp32 = fp32
+        launched = pdf_cuda.diff_launches - before
+        require(launched == (2 if device.type == "cuda" else 0),
+                f"K2 launched {launched} times in one {device.type} NeRF++ train step")
+        return ({k: float(v) for k, v in metrics.items()},
+                {k: None if g is None else g.cpu() for k, g in optimizer.grads.items()},
+                [c[3].detach().cpu() for c in calls], kinks)
+
+    def nudged(b, spec, kind):
+        """The CPU gradients of one step with one-ulp random moves of its
+        inputs: each level-0 sample by about one ulp of its depth ("samples":
+        fg depths run from the min depth to the sphere exit, bg inverse
+        depths over [0, 1]), or each entry of the camera's initial
+        intrinsics, poses and distortion ("rays")."""
+        camera = nerfpp_camera(cpu, fisheye=spec.get("fisheye", False))
+        if kind == "rays":
+            leaves = bridge.camera_to_numpy(camera)
+            for k in FROZEN_LEAVES:
+                leaves[k] = one_ulp_moves(rng, leaves[k])
+            moved = bridge.camera_from_numpy({**leaves, "config": camera.config}, device=cpu)
+            return one_step(cpu, b, spec, camera=moved)[1]
+        with torch.no_grad():
+            o, d = pixels_to_rays(camera, torch.from_numpy(b["px"]), torch.from_numpy(b["py"]),
+                                  image_idx=int(b["img_idx"]))
+            far = intersect_sphere(o, d).numpy()[:, None]
+        near = b["min_depth"][:, None]
+        k = np.arange(s0) / (s0 - 1)
+        width = (far - near) / (s0 - 1)
+        dt_fg = np.spacing((near + (far - near) * k).astype(np.float32)) / width
+        dt_bg = np.spacing(k.astype(np.float32)) * (s0 - 1)
+        t_fg, t_bg = b["rands"][0]
+        ups = lambda x: np.where(rng.random(x.shape) < 0.5, -1.0, 1.0)  # noqa: E731
+        moved = (np.clip(t_fg + ups(t_fg) * dt_fg, 0, 1).astype(np.float32),
+                 np.clip(t_bg + ups(t_bg) * dt_bg, 0, 1).astype(np.float32))
+        return one_step(cpu, {**b, "rands": [moved, b["rands"][1]]}, spec)[1]
+
+    for case, (spec, b) in cases.items():
+        # K2 on the card and its twin on the CPU, each on its own CDF: a
+        # sample whose count differs (a u within rounding of a CDF entry, or
+        # a row whose CDF the card's scan makes decrease) moves to the next
+        # bin, and its ray's level-1 query with it. Such flips are held to
+        # phase 5's share, and the CPU step then takes the card's resampled
+        # depths (its own derivative), so that a flip does not count again
+        # in the gradients.
+        # Likewise a ReLU whose pre-activation lies within rounding of 0 may
+        # take the other side on the other device, and one such unit at a
+        # sample of large weight (the last bg sample carries most of its
+        # ray's bg weight) moves its layer's gradient by 1e-2 (PERF.md §6).
+        # The CPU step takes the card's side there, and the flipped entries
+        # are shown to lie within KINK of 0 on both devices.
+        card_m, card_g, card_r, card_k = one_step(dev, b, spec)
+        cpu_m, cpu_g, cpu_r, cpu_k = one_step(cpu, b, spec, card=(card_r, card_k))
+        shares = [float(((a - c).abs() > 1e-4).float().mean()) for a, c in zip(card_r, cpu_r)]
+        require(all(x < 1e-3 for x in shares), f"{case}: K2 flips {shares} between the card "
+                                               "and the CPU")
+        flipped = torch.cat([torch.cat([mine, theirs]) for _, mine, theirs in cpu_k])
+        near = sum(len(idx) for idx, _ in card_k)
+        largest = float(flipped.abs().max()) if len(flipped) else 0.0
+        require(largest < KINK, f"{case}: a kink flipped at |pre-activation| {largest}")
+        # float32's own spread: each leaf's largest change over four CPU
+        # steps with one-ulp moves of the inputs, two of the level-0 samples
+        # and two of the rays (the camera's initial intrinsics, poses and
+        # distortion). The card is held to 1e-4 or, where larger, that
+        # spread.
+        cpu_own_g = one_step(cpu, b, spec)[1]
+        spread = [nudged(b, spec, kind) for kind in ("samples", "rays") for _ in range(2)]
+        limits = {path: max(1e-4, max(rel_l2(g[path], g_cpu) for g in spread))
+                  for path, g_cpu in cpu_own_g.items() if g_cpu is not None}
+        rel_loss, rows = over_limits(card_m, card_g, cpu_m, cpu_g, limits)
+        extra = (f"; prd {card_m['prd']:.6f} / {cpu_m['prd']:.6f}, prd_matches "
+                 f"{card_m['prd_matches']:g} / {cpu_m['prd_matches']:g}") if "prd" in cpu_m else ""
+        print(f"  {case}, {n} rays: loss {card_m['loss']:.7f} card, {cpu_m['loss']:.7f} CPU "
+              f"(relative {rel_loss:.3e}){extra}; K2 flips (fg, bg) {shares}; kinks: "
+              f"{len(flipped) // 2} of the card's {near} dense outputs within {KINK:g} of 0 "
+              f"on the other side on the CPU (largest |value| on either {largest:.3e}); {len(rows)} "
+              f"leaves, each held to 1e-4 or the CPU's spread under one-ulp moves of the "
+              f"level-0 samples and of the rays")
+        for ratio, path, rel, limit in rows[:6] + [r for r in rows[6:] if r[1].startswith(
+                ("camera/", "levels/0/autoexpo", "levels/1/autoexpo"))]:
+            print(f"    {path}: card vs CPU {rel:.3e}, limit {limit:.3e} ({ratio:.2f} of it)")
+        for ratio, path, rel, limit in rows:
+            require(ratio <= 1.0, f"{case}: card vs CPU gradient of {path}: relative L2 "
+                                  f"{rel:.3e} over its limit {limit:.3e}")
+        require(rel_loss <= 1e-5, f"{case}: card vs CPU loss relative error {rel_loss}")
+        if "prd" in cpu_m:
+            require(card_m["prd_matches"] == cpu_m["prd_matches"] > 0,
+                    f"{case}: prd_matches {card_m['prd_matches']} / {cpu_m['prd_matches']}")
+        m, g, _, _ = one_step(dev, b, spec, tf32=True)
+        rel_loss, rows = over_limits(m, g, cpu_m, cpu_g, limits)
+        failed = [f"{path} {ratio:.2f}x" for ratio, path, _, _ in rows if ratio > 1.0]
+        print(f"  control, TF32 on in the step: loss relative {rel_loss:.3e}"
+              f"{' (over 1e-5)' if rel_loss > 1e-5 else ''}; {len(failed)} leaves over their "
+              f"limits: {', '.join(failed[:8]) or 'none'}")
+        require(rel_loss > 1e-5 or bool(failed), f"{case}: TF32 on in the step passes the limits")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on an NVIDIA card",
@@ -1429,6 +2030,7 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from scnerf_tpu_torch.kernels import _build
 
+    started = time.perf_counter()
     dev = torch.device("cuda", 0)
     card = card_line()
     print("== phase 1: card, versions, kernel build")
@@ -1480,7 +2082,14 @@ def main() -> int:
     train_record = phase_train(dev, card, train_slice)
     prd_record = phase_prd_train(dev, card, train_slice)
     phase_train_cpu_agreement(dev, train_slice)
+    del train_slice
 
+    pp_train_k2, pp_train_record = phase_nerfpp_train(dev, card)
+    fisheye_record = phase_nerfpp_fisheye(dev, card)
+    phase_nerfpp_train_cpu_agreement(dev)
+
+    seconds = time.perf_counter() - started
+    print(f"chip_smoke: {seconds:.1f} s in all, the kernels' build included")
     print(json.dumps({"kernels": [{
         "name": "sample_pdf",
         "route": "cuda",
@@ -1499,6 +2108,9 @@ def main() -> int:
         "replaces": "scnerf_tpu/kernels/pdf_pallas.py:194",
         "launches": pp_launches,
         **pp_record,
+        "train_launches": pp_train_record["nerfpp_train_launches"],
+        "train_cdf_launches": pp_train_record["nerfpp_train_cdf_launches"],
+        **pp_train_k2,
     }, {
         "name": "searchsorted",
         "route": "cuda",
@@ -1515,7 +2127,8 @@ def main() -> int:
         "replaces": "scnerf_tpu/kernels/mlp_pallas.py:85",
         "launches": field_launches,
         **field_record,
-    }], "train": {**train_record, **prd_record}}))
+    }], "train": {**train_record, **prd_record, **pp_train_record, **fisheye_record},
+        "seconds": seconds}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,8 +13,9 @@ np.asarray, tree)``), so this module imports neither ``jax`` nor
 - Configs: a port config is built from the fields of a JAX config with the
   same names; JAX-only fields are checked to be ones the port's values do not
   depend on (``TrainConfig`` and ``Curriculum`` included).
-- Training parameters: the JAX train tree ``{"coarse", "fine", "camera"}``
-  becomes the port's with the trainable leaves requiring grad
+- Training parameters: the JAX train tree (NeRF's ``{"coarse", "fine",
+  "camera"}``, NeRF++'s ``{"levels": [{"fg", "bg", "autoexpo"?}, ...],
+  "camera"}``) becomes the port's with the trainable leaves requiring grad
   (:func:`train_params_to_torch`), and goes back by JAX leaf name
   (:func:`train_params_to_numpy`).
 """
@@ -113,9 +114,10 @@ def camera_to_numpy(camera: Camera) -> dict[str, np.ndarray]:
 
 def train_params_to_torch(params: dict, *, device: torch.device | str = "cuda") -> dict:
     """A JAX train tree with numpy leaves (``jax.tree.map(np.asarray,
-    params)``: ``{"coarse", "fine", "camera"}``, each optional) -> the
-    port's, every MLP leaf and the camera's ``*_noise``/``*_grid`` leaves
-    requiring grad."""
+    params)``: ``{"coarse", "fine", "camera"}`` or ``{"levels",
+    "camera"}``, each optional) -> the port's, every MLP leaf, autoexpo
+    table and the camera's ``*_noise``/``*_grid`` leaves requiring grad; the
+    camera's ``*_init`` leaves do not."""
     out = {}
     for key, sub in params.items():
         if key == "camera":

@@ -6,5 +6,5 @@ from scnerf_tpu_torch.camera.model import (
 )
 from scnerf_tpu_torch.camera.rays import (
     apply_radial_distortion, full_image_pixels, pixels_to_rays,
-    rays_full_image, rays_no_camera,
+    rays_full_image, rays_no_camera, rays_opencv,
 )

@@ -163,7 +163,7 @@ def get_extrinsics(camera: Camera) -> torch.Tensor:
         camera.extrinsics_init + cfg.extrinsics_noise_scale * camera.extrinsics_noise)
 
 
-def _take_rows(x: torch.Tensor, idx) -> torch.Tensor:
+def take_rows(x: torch.Tensor, idx) -> torch.Tensor:
     """``x[idx]`` for an int or an index tensor. A tensor goes through
     ``index_select``: its backward is one ``index_add`` (a plain ``x[t]``'s
     is a sort-based ``index_put``, dozens of launches), and a 0-d tensor is
@@ -178,8 +178,8 @@ def get_extrinsic(camera: Camera, idx) -> torch.Tensor:
     """Single (or gathered) c2w extrinsic(s) for image index/indices ``idx``."""
     cfg = camera.config
     return _decode_extrinsics(
-        _take_rows(camera.extrinsics_init, idx)
-        + cfg.extrinsics_noise_scale * _take_rows(camera.extrinsics_noise, idx))
+        take_rows(camera.extrinsics_init, idx)
+        + cfg.extrinsics_noise_scale * take_rows(camera.extrinsics_noise, idx))
 
 
 def get_distortion(camera: Camera) -> torch.Tensor:
@@ -213,7 +213,7 @@ def sample_noise_grid(grid: torch.Tensor, px: torch.Tensor, py: torch.Tensor,
     flat = grid.reshape(gh * gw, grid.shape[-1])
 
     def at(y, x):
-        return _take_rows(flat, y * gw + x)
+        return take_rows(flat, y * gw + x)
 
     top = at(y0, x0) * (1.0 - wx) + at(y0, x1) * wx
     bot = at(y1, x0) * (1.0 - wx) + at(y1, x1) * wx

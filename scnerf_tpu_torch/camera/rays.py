@@ -127,3 +127,14 @@ def rays_no_camera(H: int, W: int, focal, c2w: torch.Tensor, px=None, py=None):
         dim=-1,
     )
     return _rotate(c2w, dirs)
+
+
+def rays_opencv(K: torch.Tensor, c2w: torch.Tensor, px, py, pixel_offset: float = 0.5):
+    """Fixed-camera OpenCV rays (the NeRF++ path without a camera model):
+    ``dirs = K^-1 [px + off, py + off, 1]`` rotated into the world frame by
+    one ``(4, 4)`` c2w, origins at the camera centre. ``K`` is ``(4, 4)`` (or
+    ``(3, 3)``)."""
+    px = torch.as_tensor(px, dtype=torch.float32, device=c2w.device)
+    py = torch.as_tensor(py, dtype=torch.float32, device=c2w.device)
+    pix = torch.stack([px + pixel_offset, py + pixel_offset, torch.ones_like(px)], dim=-1)
+    return _rotate(c2w, pix @ K_inverse_3x3(K).T)

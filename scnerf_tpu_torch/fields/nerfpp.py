@@ -12,10 +12,14 @@ Port of ``scnerf_tpu/fields/nerfpp.py``:
 - viewdirs always feed the rgb head (the JAX config's ``use_viewdirs`` is
   read nowhere, so the port's config has no such field).
 
-The matmuls are ``torch.addmm`` in float32. JAX's sample-chunked remat
+The matmuls are ``torch.addmm`` in float32, and autograd runs through
+:func:`nerfpp_forward` for training. JAX's sample-chunked remat
 (``query_mlpnet_chunked``) keeps the same values and only saves training
-memory, so the forward-only port applies each net at once; the fused fg+bg
-query (``fuse_fgbg``) is not ported.
+memory, which an 80 GB card does not need, so the port applies each net at
+once; the fused fg+bg query (``fuse_fgbg``) is not ported. The
+transmittances take ``cumprod_positive`` (every factor is ``1 - alpha +
+1e-10 > 0``), whose backward does not read the device as ``torch.cumprod``'s
+does.
 """
 from __future__ import annotations
 
@@ -25,7 +29,9 @@ import torch
 
 from scnerf_tpu_torch.fields.encoding import EncodingConfig, positional_encoding
 from scnerf_tpu_torch.fields.mlp import dense, init_dense
+from scnerf_tpu_torch.camera.model import take_rows
 from scnerf_tpu_torch.geometry.sphere import HUGE_NUMBER, TINY_NUMBER, depth2pts_outside
+from scnerf_tpu_torch.render.composite import cumprod_positive
 
 
 @dataclasses.dataclass(frozen=True)
@@ -145,7 +151,7 @@ def nerfpp_forward(
     fg_dists = ray_d_norm * torch.cat(
         [fg_dists, fg_z_max[..., None] - fg_z_vals[..., -1:]], dim=-1)
     fg_alpha = 1.0 - torch.exp(-fg_sigma * fg_dists)
-    T = torch.cumprod(1.0 - fg_alpha + TINY_NUMBER, dim=-1)
+    T = cumprod_positive(1.0 - fg_alpha + TINY_NUMBER)
     bg_lambda = T[..., -1]
     T = torch.cat([torch.ones_like(T[..., :1]), T[..., :-1]], dim=-1)
     fg_weights = fg_alpha * T
@@ -163,7 +169,7 @@ def nerfpp_forward(
     bg_dists = torch.cat([bg_dists, torch.full_like(bg_dists[..., :1], HUGE_NUMBER)], dim=-1)
     bg_rgb, bg_sigma = query_mlpnet(params["bg"], cfg, bg_pts, views_enc, 4)
     bg_alpha = 1.0 - torch.exp(-bg_sigma * bg_dists)
-    T = torch.cumprod(1.0 - bg_alpha + TINY_NUMBER, dim=-1)[..., :-1]
+    T = cumprod_positive(1.0 - bg_alpha + TINY_NUMBER)[..., :-1]
     T = torch.cat([torch.ones_like(T[..., :1]), T], dim=-1)
     bg_weights = bg_alpha * T
     bg_rgb_map = torch.sum(bg_weights[..., None] * bg_rgb, dim=-2)
@@ -184,6 +190,7 @@ def nerfpp_forward(
 
 
 def autoexpo_params(params: dict, img_idx):
-    """Effective (scale, shift) of image(s) ``img_idx``."""
-    ae = params["autoexpo"][img_idx]
+    """Effective (scale, shift) of image(s) ``img_idx`` (an int, or an index
+    tensor of any shape: a 0-d one is not read back to the host)."""
+    ae = take_rows(params["autoexpo"], img_idx)
     return torch.abs(ae[..., 0]) + 0.5, ae[..., 1]

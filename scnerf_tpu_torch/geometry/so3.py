@@ -45,7 +45,10 @@ def embed_rotation_44(R: torch.Tensor) -> torch.Tensor:
     """``(..., 3, 3)`` -> homogeneous ``(..., 4, 4)``."""
     out = R.new_zeros(R.shape[:-2] + (4, 4))
     out[..., :3, :3] = R
-    out[..., 3, 3] = 1.0
+    # A slice, not out[..., 3, 3]: for one matrix that is a 0-d view, and
+    # writing a Python number into a 0-d CUDA view copies it from the host
+    # and waits for the device.
+    out[..., 3, 3:] = 1.0
     return out
 
 

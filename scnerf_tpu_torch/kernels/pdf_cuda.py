@@ -11,6 +11,15 @@
   ``sampling/pdf.py:inverse_cdf``. The backward is PyTorch ops, as JAX's is
   XLA ops: gathers, scatter-adds and a reverse cumsum.
 
+A NeRF++ train step (``train/nerfpp_step.py``, through
+``render/nerfpp_renderer.py``) calls K2 twice per later cascade level: the
+fg resample through the autograd function, which saves the CDF (its bins
+come from the rays and require grad), and the bg resample forward only,
+without a CDF (its bins are uniforms that never require grad, and the
+weights are detached); the fg's backward runs once, under the profiler
+range ``"sample_pdf_diff_backward"``. ``diff_launches`` counts both
+launches, ``cdf_launches`` the ones that saved the CDF.
+
 Both kernels are instantiations of one template in ``csrc/sample_pdf.cu``
 (one warp per ray, a binary search over the CDF; its header says what bounds
 it and how the design answers), launched through registered PyTorch
@@ -39,6 +48,7 @@ VARIANTS = ("nerf", "nerfpp")
 # the kernel.
 launches = 0
 diff_launches = 0
+cdf_launches = 0  # the K2 launches that wrote the CDF (a part of diff_launches)
 
 
 @functools.cache
@@ -127,7 +137,7 @@ def sample_pdf_fwd(bins: torch.Tensor, weights: torch.Tensor, u: torch.Tensor,
       ``torch.ops.scnerf_tpu_torch.sample_pdf_fwd``, launched on the current
       stream, not synchronised. Forward only, as :func:`sample_pdf_core`.
     """
-    global diff_launches
+    global diff_launches, cdf_launches
     _forward_only("sample_pdf_fwd", bins, weights, u)
     if not bins.is_cuda:
         if variant not in VARIANTS:
@@ -137,6 +147,7 @@ def sample_pdf_fwd(bins: torch.Tensor, weights: torch.Tensor, u: torch.Tensor,
         return out, inds, cdf if with_cdf else None
     result = _ops()[1](bins, weights, u, variant, with_cdf)
     diff_launches += 1
+    cdf_launches += with_cdf
     return result
 
 
@@ -198,7 +209,8 @@ class _SamplePdfDiff(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, g):
         bins, weights, u, inds, cdf = ctx.saved_tensors
-        grads = sample_pdf_diff_backward(g, bins, weights, u, inds, cdf, ctx.variant)
+        with torch.profiler.record_function("sample_pdf_diff_backward"):
+            grads = sample_pdf_diff_backward(g, bins, weights, u, inds, cdf, ctx.variant)
         return (*(gr if need else None
                   for gr, need in zip(grads, ctx.needs_input_grad[:3])), None)
 

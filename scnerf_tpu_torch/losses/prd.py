@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import torch
 
+from scnerf_tpu_torch.camera.distortion import undistort_pixels
 from scnerf_tpu_torch.geometry.so3 import se3_inverse
 
 _EPS = 1e-10
@@ -49,14 +50,18 @@ def prd_pointwise(
     against ``kps0``), ``loss1`` likewise in image 1, ``chirality`` a float
     mask of the points in front of both cameras.
 
-    ``distortion_k`` (the distortion-aware variant) needs the inverse
-    distortion lookup of NeRF++ training, which the port does not have yet:
-    it raises ``NotImplementedError``.
+    ``distortion_k`` (with ``image_wh = (W, H)``) is the distortion-aware
+    variant: with a radial-distortion camera the rays come from warped pixel
+    coordinates, so the pinhole projection lands in warped space while the
+    keypoints are raw pixels. The inverse-distortion lookup
+    (``camera/distortion.py``) maps the projections back before the
+    comparison, and a projection outside the table's range fails the
+    validity mask, which multiplies ``chirality``. The lookup is
+    differentiable in the projection and in ``k``: this is what makes ``k``
+    observable through PRD.
     """
-    if distortion_k is not None:
-        raise NotImplementedError(
-            "distortion-aware PRD (distortion_k) needs camera/distortion.py, "
-            "not yet ported")
+    if distortion_k is not None and image_wh is None:
+        raise ValueError("distortion-aware PRD needs image_wh=(W, H)")
     if method == "NeRF":
         # Negate fx to bridge the OpenGL axes.
         K = torch.cat([torch.cat([-K[:1, :1], K[:1, 1:]], dim=1), K[1:]], dim=0)
@@ -95,6 +100,11 @@ def prd_pointwise(
     p1_in_im0 = project(p1, ext_inv[0])
 
     chirality = torch.logical_and(t0 > 0, t1 > 0).to(torch.float32)
+    if distortion_k is not None:
+        W, H = image_wh
+        v0, p1_in_im0 = undistort_pixels(W, H, distortion_k, p1_in_im0[..., 0], p1_in_im0[..., 1])
+        v1, p0_in_im1 = undistort_pixels(W, H, distortion_k, p0_in_im1[..., 0], p0_in_im1[..., 1])
+        chirality = chirality * v0.to(torch.float32) * v1.to(torch.float32)
     loss0 = torch.clamp(torch.sum((p1_in_im0 - kps0) ** 2, dim=-1), max=_L_MAX)
     loss1 = torch.clamp(torch.sum((p0_in_im1 - kps1) ** 2, dim=-1), max=_L_MAX)
     return loss0, loss1, chirality
@@ -127,6 +137,8 @@ def prd_loss(
       method: "NeRF" negates fx (OpenGL axes); "NeRF++" leaves K as it is.
       mode: "train" drops outliers from the mean; "val"/"test" clamps them
         to ``threshold``.
+      distortion_k, image_wh: the distortion-aware variant
+        (:func:`prd_pointwise`).
     Returns:
       ``(loss, num_valid)``, both 0-d: the joint-validity count in train
       mode, the count of chirality-valid unpadded matches otherwise.

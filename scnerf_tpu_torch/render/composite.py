@@ -28,6 +28,12 @@ class _CumprodPositive(torch.autograd.Function):
         return torch.flip(torch.cumsum(torch.flip(grad * out, [-1]), dim=-1), [-1]) / x
 
 
+def cumprod_positive(x: torch.Tensor) -> torch.Tensor:
+    """``torch.cumprod(x, dim=-1)`` for factors known to be positive, with a
+    backward that never waits for the device."""
+    return _CumprodPositive.apply(x)
+
+
 def raw2outputs(
     raw: torch.Tensor,
     z_vals: torch.Tensor,
@@ -63,7 +69,7 @@ def raw2outputs(
         raise ValueError(sigma_activation)
 
     alpha = 1.0 - torch.exp(-sigma * dists)
-    trans = _CumprodPositive.apply(1.0 - alpha + 1e-10)  # factors >= 1e-10
+    trans = cumprod_positive(1.0 - alpha + 1e-10)  # factors >= 1e-10
     trans = torch.cat([torch.ones_like(trans[..., :1]), trans[..., :-1]], dim=-1)
     weights = alpha * trans
 

@@ -10,9 +10,27 @@ Resampling goes through the K2 wrapper (``kernels/pdf_cuda.py:
 sample_pdf_diff``), which launches the CUDA kernel for tensors on the card
 and runs its plain twin for tensors on the CPU, whatever ``pdf_impl`` says:
 the name picks an implementation of one function in the JAX package, and
-the device picks it here. ``"pallas_stopgrad"`` detaches the bins first. It
-runs the NeRF++ variant, like every other name; the JAX package's TPU branch
-for that name runs the NeRF variant by mistake.
+the device picks it here.
+
+Training. Only the weights are detached before a resample, as in the
+reference: the gradient of the fg depths flows through the resample *bins*
+(the midpoints of the previous level's depths, which the sphere exit ties
+to the rays) into the rays and the camera, by K2's autograd function. The
+bg bins never require grad: level 0's bg depths are a fixed linspace on [0,
+1] jittered by uniforms, independent of the rays, and K2's forward-only
+output keeps it so at every later level. So each later level of a train
+step makes two K2 launches: the fg resample, which saves its CDF for the
+backward, and the bg resample, forward only with no CDF
+(``sample_pdf_diff`` skips the autograd function where no input requires
+grad); and one K2 backward (PyTorch ops), the fg's. The level-0 jitter and
+the inverse-CDF uniforms come from ``generator``, or from ``rands``.
+
+``"pallas_stopgrad"`` detaches the fg bins too (no K2 backward, no saved
+CDF), the intent of the JAX package's TPU branch for that name. That branch
+runs only on a TPU without ``rands``; on the CPU, or with ``rands``, JAX
+falls through to the differentiable sampler, so there its camera gets the
+bins' gradient and here it does not. The port runs the NeRF++ variant under
+every name; the JAX TPU branch runs the NeRF variant by mistake.
 """
 from __future__ import annotations
 

@@ -142,6 +142,17 @@ def make_train_step(
         metrics["loss"] = loss
         return loss, metrics
 
+    return make_step_fn(loss_fn, curriculum, optimizer)
+
+
+def make_step_fn(loss_fn, curriculum: Curriculum, optimizer: Optimizer):
+    """The step around ``loss_fn(params, batch, generator, step) -> (loss,
+    metrics)``, shared by the NeRF and NeRF++ steps: ``step(state, batch,
+    generator=None) -> (state, metrics)`` takes one ``autograd.grad`` over
+    the trainable leaves under :func:`fp32`, masks the camera's gradients by
+    the curriculum, updates the leaves in place and returns the metrics
+    detached."""
+
     def step_fn(state: TrainState, batch: dict, generator: torch.Generator | None = None):
         leaves = trainable_leaves(state.params)
         with fp32():

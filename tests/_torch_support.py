@@ -12,6 +12,11 @@
   seconds alone.
 - :func:`interpret`, the one way these modules run a JAX function that
   reaches a Pallas TPU kernel.
+- The train-step parity helpers shared by ``test_torch_train_step.py`` and
+  ``test_torch_nerfpp_train.py``: batches as JAX arrays and as tensors
+  (:func:`to_jax`, :func:`to_port`), the two gradient captures
+  (:func:`gradient_tx`, :class:`GradientCapture`) and
+  :func:`assert_gradients_close`.
 """
 from __future__ import annotations
 
@@ -19,6 +24,7 @@ import faulthandler
 import os
 import sys
 
+import numpy as np
 import pytest
 
 TEST_TIMEOUT_S = 300
@@ -67,3 +73,76 @@ def interpret(fn):
 
     with pltpu.force_tpu_interpret_mode():
         return jax.block_until_ready(jax.jit(fn)())
+
+
+def to_jax(batch):
+    """Nested dicts/lists/tuples of numpy values -> JAX arrays, float64 as
+    float32."""
+    import jax.numpy as jnp
+
+    if isinstance(batch, dict):
+        return {k: to_jax(v) for k, v in batch.items()}
+    if isinstance(batch, (list, tuple)):
+        return type(batch)(to_jax(v) for v in batch)
+    v = np.asarray(batch)
+    return jnp.asarray(v.astype(np.float32) if v.dtype == np.float64 else v)
+
+
+def to_port(batch, device="cpu"):
+    """Nested dicts/lists/tuples of numpy values -> tensors, float64 as
+    float32."""
+    import torch
+
+    if isinstance(batch, dict):
+        return {k: to_port(v, device) for k, v in batch.items()}
+    if isinstance(batch, (list, tuple)):
+        return type(batch)(to_port(v, device) for v in batch)
+    v = np.asarray(batch)
+    return torch.from_numpy(v.astype(np.float32) if v.dtype == np.float64 else v).to(device)
+
+
+def gradient_tx():
+    """An optax transformation that moves nothing and keeps the gradients it
+    is given (after the step's masks) as its state. (``optax.sgd(1.0)``'s
+    delta ``p - (p - g)`` would lose the low bits of ``g`` where ``|g| <<
+    |p|``.)"""
+    import jax
+    import jax.numpy as jnp
+    import optax
+
+    return optax.GradientTransformation(
+        lambda params: jax.tree.map(jnp.zeros_like, params),
+        lambda grads, state, params=None: (jax.tree.map(jnp.zeros_like, grads), grads))
+
+
+class GradientCapture:
+    """The port's counterpart of :func:`gradient_tx`: an optimizer that
+    moves nothing and keeps the gradients the step hands it."""
+
+    def init(self, params):
+        from scnerf_tpu_torch.train.optim import OptState
+
+        return OptState(count=0, mu={}, nu={})
+
+    def update(self, grads, state, params):
+        self.grads = {k: None if g is None else g.detach().clone() for k, g in grads.items()}
+        state.count += 1
+        return {}
+
+
+def assert_gradients_close(t_grads, j_grads, rel_l2=1e-4, cosine=0.9999):
+    """Per leaf: finite, and a relative L2 error <= ``rel_l2`` and a cosine
+    >= ``cosine`` against JAX's (a missing port gradient counts as zeros;
+    a zero JAX gradient must be zero here)."""
+    assert set(t_grads) == set(j_grads)
+    for path, want in j_grads.items():
+        got = t_grads[path]
+        got = np.zeros_like(want) if got is None else got.numpy()
+        assert np.isfinite(got).all(), path
+        norm = np.linalg.norm(want)
+        if norm == 0.0:
+            assert not np.abs(got).any(), path
+            continue
+        rel = np.linalg.norm(got - want) / norm
+        cos = float((got * want).sum() / (np.linalg.norm(got) * norm))
+        assert rel <= rel_l2 and cos >= cosine, (path, rel, cos)

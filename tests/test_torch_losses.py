@@ -316,9 +316,12 @@ class TestPRD:
         assert abs((np.linalg.inv(E[1]) @ np.append(p, 1.0))[2]) < 1e-6
 
     def test_distortion_k_raises(self):
+        """``distortion_k`` without the image size it needs raises (the
+        distortion-aware variant itself is held to JAX in
+        ``tests/test_torch_nerfpp_train.py``)."""
         inp = prd_inputs("NeRF++", n=4)
         rays = [_t(a) for a in inp["rays"]]
-        with pytest.raises(NotImplementedError, match="distortion"):
+        with pytest.raises(ValueError, match="image_wh"):
             tprd.prd_loss(_t(inp["kps0"]), _t(inp["kps1"]), tuple(rays[:2]), tuple(rays[2:]),
                           _t(inp["K"]), _t(inp["E"]), method="NeRF++",
-                          distortion_k=torch.tensor([0.1, 0.0]), image_wh=(16, 16))
+                          distortion_k=torch.tensor([0.1, 0.0]))

@@ -27,10 +27,13 @@ import pytest
 
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
-import optax  # noqa: E402
 import torch  # noqa: E402
 
+from _torch_support import GradientCapture, assert_gradients_close  # noqa: E402
+from _torch_support import gradient_tx as _gradient_tx  # noqa: E402
 from _torch_support import hang_watchdog  # noqa: E402,F401
+from _torch_support import to_jax as _to_jax  # noqa: E402
+from _torch_support import to_port as _to_port  # noqa: E402
 from scnerf_tpu.camera.model import CameraConfig as JCameraConfig  # noqa: E402
 from scnerf_tpu.camera.model import init_camera as j_init_camera  # noqa: E402
 from scnerf_tpu.fields.nerf import NeRFConfig as JNeRFConfig  # noqa: E402
@@ -148,44 +151,6 @@ def prd_batch(rng):
     return batch
 
 
-def _to_jax(batch):
-    return {k: _to_jax(v) if isinstance(v, dict) else
-            jnp.asarray(np.asarray(v, np.float32) if np.asarray(v).dtype == np.float64 else v)
-            for k, v in batch.items()}
-
-
-def _to_port(batch):
-    out = {}
-    for k, v in batch.items():
-        if isinstance(v, dict):
-            out[k] = _to_port(v)
-        else:
-            v = np.asarray(v)
-            out[k] = torch.from_numpy(v.astype(np.float32) if v.dtype == np.float64 else v)
-    return out
-
-
-def _gradient_tx():
-    """An optax transformation that moves nothing and keeps the gradients it
-    is given (after the step's masks) as its state."""
-    return optax.GradientTransformation(
-        lambda params: jax.tree.map(jnp.zeros_like, params),
-        lambda grads, state, params=None: (jax.tree.map(jnp.zeros_like, grads), grads))
-
-
-class GradientCapture:
-    """The port's counterpart: an optimizer that moves nothing and keeps the
-    gradients the step hands it."""
-
-    def init(self, params):
-        return toptim.OptState(count=0, mu={}, nu={})
-
-    def update(self, grads, state, params):
-        self.grads = {k: None if g is None else g.detach().clone() for k, g in grads.items()}
-        state.count += 1
-        return {}
-
-
 def jax_leaves(tree):
     """A JAX train tree's trainable leaves by the port's paths, as numpy."""
     out = toptim.named_leaves({k: v for k, v in tree.items() if k != "camera"})
@@ -227,21 +192,6 @@ def assert_metrics_close(t_metrics, j_metrics):
         else:
             np.testing.assert_allclose(float(v), float(j_metrics[k]), rtol=METRIC_RTOL,
                                        err_msg=k)
-
-
-def assert_gradients_close(t_grads, j_grads):
-    assert set(t_grads) == set(j_grads)
-    for path, want in j_grads.items():
-        got = t_grads[path]
-        got = np.zeros_like(want) if got is None else got.numpy()
-        assert np.isfinite(got).all(), path
-        norm = np.linalg.norm(want)
-        if norm == 0.0:
-            assert not np.abs(got).any(), path
-            continue
-        rel = np.linalg.norm(got - want) / norm
-        cos = float((got * want).sum() / (np.linalg.norm(got) * norm))
-        assert rel <= 1e-4 and cos >= 0.9999, (path, rel, cos)
 
 
 STEP_CASES = {
