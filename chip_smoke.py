@@ -1,5 +1,5 @@
-"""Drive the PyTorch port's NeRF and NeRF++ serving paths and its NeRF and
-NeRF++ train steps once on an NVIDIA card.
+"""Drive the PyTorch port's NeRF and NeRF++ serving paths, its NeRF and
+NeRF++ train steps and its NeRF training CLI once on an NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -150,6 +150,44 @@ the JAX package. Phases, each of which exits non-zero when it fails:
     (two: the camera's initial intrinsics, poses and distortion). Control:
     TF32 on in the step must break a limit.
 
+16. The training CLI at full fern width: ``scnerf_tpu_torch.cli.train.main``
+    in-process with ``configs/llff/fern_ours.txt`` (NeRF 8x256, multires
+    10/4, 64+64 samples, ``raw_noise_std`` 1, N_rand 1024 drawn from a
+    ``PixelPool`` through the full learnable camera, weight decay 0.1, PRD
+    one step in ten) on a seeded scene of fern's shape written into a
+    temporary directory: 20 views of 378x504 with fern's hwf column, smooth
+    seeded textures in ``images/`` and ``images_8/``, and ``matches.npz``
+    projected from 200 seeded points through the ground-truth poses.
+    ``--add_ie 0 --add_od 0 --add_prd 0 --i_print 10 --i_weights 30``: 60
+    steps, then ``main`` again to 80, which must resume from step 60. Every
+    ``metrics.jsonl`` row finite, the last logged loss below the first, PRD
+    on every tenth step, ``prd_matches > 0`` on the first (the camera at its
+    initial values; the counts of the others printed with how far the poses
+    wandered), checkpoints at 30 and 60 and, after
+    the resume, 80; each run's ``[eval]`` PSNR finite and SSIM in (0, 1); K1
+    launched once a train step and once a chunk of the three test-view
+    renders. Then, on the resumed experiment: ten loop steps (one with PRD)
+    under ``torch.cuda.set_sync_debug_mode`` with no call that waits for
+    the device; the loop against the same step functions on one ready device
+    batch in turns (the gap is the host loop's own cost); ``train_loop`` with
+    the evaluation hooks (test views, train and val PRD on injected test-view
+    matches, the validation PNG, the camera log and its PNGs, read back).
+    Printed: each step's ms by CUDA events, plain and PRD steps apart, the
+    loop's ms a step and train rays/s, one test view's render time and rays/s,
+    SSIM's time, the checkpoint's bytes and save and restore times, peak
+    memory and the phase's seconds.
+17. The card against the CPU port on the driver's evaluation, from the same
+    weights on one test view: ``aligned_eval_extrinsic`` max |err| < 1e-5;
+    the render's rgb on 1,024 seeded pixels (``render_pixels`` on the CPU)
+    median |err| < 1e-5 and max < 1e-3; SSIM on the same images |diff| <
+    1e-6; ``evaluate_prd_split`` within relative 1e-5 with the learned
+    intrinsics moved by a few pixels on both devices (with the trained
+    camera, at the ground truth, it reads float32's rounding, about 5e-7
+    px^2: printed, not compared). Controls, printed and
+    not conditions: SSIM as JAX computes it, the 2-D window by ``F.conv2d``,
+    through cuDNN in float32 (the window computed on the CPU and on the
+    card), without cuDNN, through cuDNN with TF32, and on the CPU.
+
 Each serving path, each of K3's and K4's own paths and each train path run
 with the kernels' launch counts set to 0 just before and read just after. The
 line before the last is one JSON object with the kernels' numbers, each with
@@ -158,8 +196,9 @@ the least time the card could take for its work (``bound_ms``: bytes over
 at 67 TFLOP/s or, for K3, three TF32 passes at 495 TFLOP/s; the larger), K1's
 and K2's with their launches on the train paths too (K2's with its shape,
 error, times and bound on the NeRF++ train step's inputs), the train
-metrics and the script's wall time; the line before it is the card's name
-and power limit; the last line is ``{"ok": true, "device": {...}}``.
+metrics (the driver's of phases 16-17 among them, and K1's launches in phase
+16 as ``driver_launches``) and the script's wall time; the line before it is
+the card's name and power limit; the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -172,6 +211,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -1290,9 +1330,53 @@ def phase_prd_train(dev, card, slice_):
 
 
 @contextlib.contextmanager
+def fp32_cudnn():
+    """TF32 off for matmuls and cuDNN, cuDNN on: a control of phase 17."""
+    from scnerf_tpu_torch.serve import fp32
+
+    with fp32(), torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        yield
+
+
+@contextlib.contextmanager
+def fp32_no_cudnn():
+    """TF32 off, cuDNN off (PyTorch's own convolution): a control of phase
+    17."""
+    from scnerf_tpu_torch.serve import fp32
+
+    with fp32(), torch.backends.cudnn.flags(enabled=False, allow_tf32=False):
+        yield
+
+
+def conv2d_ssim(pred, target, flags, window_device) -> float:
+    """SSIM as the JAX package computes it, the 2-D window (computed on
+    ``window_device``) applied by ``F.conv2d`` under ``flags``: phase 17's
+    controls for the port's separable float32 filter."""
+    import torch.nn.functional as F
+
+    x = torch.arange(11, dtype=torch.float32, device=window_device) - 5.0
+    g = torch.exp(-0.5 * (x / 1.5) ** 2)
+    g = g / torch.sum(g)
+    window = torch.outer(g, g).to(pred.device)[None, None]
+
+    def filt(img):
+        return F.conv2d(img.permute(2, 0, 1)[:, None], window)[:, 0].permute(1, 2, 0)
+
+    with flags():
+        mu_x, mu_y = filt(pred), filt(target)
+        sxx = torch.clamp(filt(pred * pred) - mu_x * mu_x, min=0.0)
+        syy = torch.clamp(filt(target * target) - mu_y * mu_y, min=0.0)
+        sxy = filt(pred * target) - mu_x * mu_y
+        c1, c2 = 0.01**2, 0.03**2
+        num = (2 * mu_x * mu_y + c1) * (2 * sxy + c2)
+        den = (mu_x * mu_x + mu_y * mu_y + c1) * (sxx + syy + c2)
+        return float(torch.mean(num / den))
+
+
+@contextlib.contextmanager
 def tf32_on():
     """TF32 on for matmuls and cuDNN in the block, the flags restored after:
-    phase 12's controls."""
+    phase 12's controls, and one of phase 17's."""
     old = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
     try:
@@ -2022,6 +2106,463 @@ def phase_nerfpp_train_cpu_agreement(dev):
         require(rel_loss > 1e-5 or bool(failed), f"{case}: TF32 on in the step passes the limits")
 
 
+# Phases 16-17: the training CLI on a seeded scene of fern's shape
+# (configs/llff/fern_ours.txt at factor 8: 20 views of 378x504, fern's hwf).
+FERN_CONFIG = os.path.join("configs", "llff", "fern_ours.txt")
+FERN_VIEWS = 20
+FERN_H, FERN_W = 378, 504
+FERN_HWF = (3024.0, 4032.0, 3260.0)  # fern's full size and focal
+FERN_BOUNDS = (2.0, 12.0)
+FERN_MATCH_POINTS = 200
+DRIVER_STEPS, DRIVER_RESUME_STEPS = 60, 80
+DRIVER_TURN_STEPS = 10  # one PRD step in each span of ten (i_ray_dist_loss 10)
+DRIVER_TURNS = 3
+DRIVER_CPU_RAYS = 1024
+PRD_INTRINSICS_MOVE = (30.0, -20.0, 15.0, -10.0)  # fx, fy, cx, cy in pixels (phase 17)
+
+
+def write_fern_scene(root: str) -> str:
+    """A seeded forward-facing LLFF scene of fern's shape under ``root``:
+    ``poses_bounds.npy`` for 20 views with fern's hwf column and seeded
+    bounds, cameras within a few degrees of looking down -z, and 20
+    378x504 PNGs of smooth seeded textures (sums of sinusoids) in both
+    ``images/`` and ``images_8/``, written by ``core/imaging.write_png``."""
+    from scnerf_tpu_torch.core.imaging import to8b, write_png
+
+    rng = np.random.RandomState(SEED + 16)
+    axis = rng.randn(FERN_VIEWS, 3)
+    axis /= np.linalg.norm(axis, axis=1, keepdims=True)
+    R = rodrigues(axis, np.deg2rad(rng.uniform(0.0, 3.0, FERN_VIEWS)))
+    t = rng.uniform([-0.5, -0.4, -0.1], [0.5, 0.4, 0.1], (FERN_VIEWS, 3))
+    rows = []
+    for i in range(FERN_VIEWS):
+        # LLFF stores [down, right, back, t, hwf]; the loader turns it into
+        # OpenGL's [right, up, back].
+        stored = np.stack([-R[i][:, 1], R[i][:, 0], R[i][:, 2], t[i], FERN_HWF], axis=1)
+        rows.append(np.concatenate([stored.reshape(-1), FERN_BOUNDS]))
+    os.makedirs(root)
+    np.save(os.path.join(root, "poses_bounds.npy"), np.asarray(rows))
+    yy, xx = np.mgrid[0:FERN_H, 0:FERN_W].astype(np.float64)
+    for i in range(FERN_VIEWS):
+        img = np.zeros((FERN_H, FERN_W, 3))
+        for c in range(3):
+            for _ in range(4):
+                fx, fy = rng.uniform(0.5, 3.0, 2) * 2 * np.pi / np.array([FERN_W, FERN_H])
+                img[..., c] += np.sin(fx * xx + fy * yy + rng.uniform(0, 2 * np.pi))
+        png = to8b(0.5 + 0.45 * img / 4)
+        for sub in ("images", "images_8"):
+            os.makedirs(os.path.join(root, sub), exist_ok=True)
+            write_png(os.path.join(root, sub, f"IMG_{i:04d}.png"), png)
+    return root
+
+
+def projected_matches(poses, K, n_points: int, seed: int):
+    """Matches between every pair of ``poses`` (c2w, OpenGL): seeded points
+    in front of the cameras projected into both images, those inside both
+    kept."""
+    from scnerf_tpu_torch.matching.provider import PairMatches, PrecomputedMatches
+
+    pts = np.random.RandomState(seed).uniform([-1.0, -0.75, -5.0], [1.0, 0.75, -2.0],
+                                              (n_points, 3))
+    kps, inside = [], []
+    for c2w in poses:
+        cam = (pts - c2w[:3, 3]) @ c2w[:3, :3]
+        k = np.stack([K[0, 2] + K[0, 0] * cam[:, 0] / -cam[:, 2],
+                      K[1, 2] - K[1, 1] * cam[:, 1] / -cam[:, 2]], -1).astype(np.float32)
+        kps.append(k)
+        inside.append((k[:, 0] >= 0) & (k[:, 0] < FERN_W) & (k[:, 1] >= 0) & (k[:, 1] < FERN_H))
+    cache = PrecomputedMatches()
+    for i in range(len(poses)):
+        for j in range(i + 1, len(poses)):
+            keep = inside[i] & inside[j]
+            cache.put(i, j, PairMatches(kps[i][keep], kps[j][keep]))
+    return cache
+
+
+class StepRecorder:
+    """A train step function wrapped so that each call is bracketed by CUDA
+    events and its metrics kept; both are read after the run (recording an
+    event does not wait for the device)."""
+
+    def __init__(self, fn):
+        self.fn = fn
+        self.calls = []
+
+    def __call__(self, state, batch, generator):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, metrics = self.fn(state, batch, generator)
+        end.record()
+        self.calls.append((state.step, start, end, metrics))
+        return state, metrics
+
+    def read(self):
+        """[(step, ms, metrics as floats)] of every call."""
+        torch.cuda.synchronize()
+        return [(step, s.elapsed_time(e), {k: float(v) for k, v in m.items()})
+                for step, s, e, m in self.calls]
+
+
+def percentiles(ms: list) -> dict:
+    return {"n": len(ms), "p50_ms": float(np.percentile(ms, 50)),
+            "p95_ms": float(np.percentile(ms, 95))} if ms else {"n": 0}
+
+
+def metric_rows(expdir: str) -> list:
+    with open(os.path.join(expdir, "metrics.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def phase_driver(dev, card, root):
+    """Phase 16: the training CLI on the card at fern's full width on a
+    seeded scene of fern's shape: 60 steps, a resume to 80, the test-view
+    evaluation; then the loop's own cost, the evaluation hooks, the
+    checkpoint's cost."""
+    import io
+    import warnings
+
+    from scnerf_tpu_torch.cli import train as cli
+    from scnerf_tpu_torch.core.imaging import read_png
+    from scnerf_tpu_torch.data.llff import load_llff
+    from scnerf_tpu_torch.metrics.ssim import ssim
+    from scnerf_tpu_torch.train import checkpoint, driver
+    from scnerf_tpu_torch.train.logging_utils import MetricLogger
+
+    print("== phase 16: the training CLI at full fern width on the card (seeded fern-shaped "
+          "scene)")
+    started = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    scene = write_fern_scene(os.path.join(root, "fern"))
+    logs = os.path.join(root, "logs")
+    expdir = os.path.join(logs, "fern_ours")
+    os.makedirs(expdir)
+    data = load_llff(scene, factor=8, llffhold=8)
+    train_matches = projected_matches(data.gt_poses[data.i_train], data.gt_intrinsic,
+                                      FERN_MATCH_POINTS, SEED + 16)
+    train_matches.save(os.path.join(expdir, "matches.npz"))
+    n_matches = [train_matches.get(i, j).kps0.shape[0] for i, j in train_matches.pairs()]
+    print(f"  scene: {FERN_VIEWS} views of {FERN_H}x{FERN_W}, train {data.i_train.tolist()}, test "
+          f"{data.i_test.tolist()}; matches.npz: {len(n_matches)} pairs, {min(n_matches)}-"
+          f"{max(n_matches)} matches a pair; written in {time.perf_counter() - started:.2f} s")
+
+    argv = ["--config", FERN_CONFIG, "--datadir", scene, "--basedir", logs,
+            "--add_ie", "0", "--add_od", "0", "--add_prd", "0",
+            "--i_print", "10", "--i_weights", "30"]
+    captured = []
+    build = driver.build_experiment
+
+    def capturing(*args, **kwargs):
+        exp = build(*args, **kwargs)
+        exp.step_fn = StepRecorder(exp.step_fn)
+        exp.step_prd_fn = StepRecorder(exp.step_prd_fn)
+        captured.append(exp)
+        return exp
+
+    driver.build_experiment = capturing
+    runs = []
+    try:
+        for first, steps in ((0, DRIVER_STEPS), (DRIVER_STEPS, DRIVER_RESUME_STEPS)):
+            torch.cuda.synchronize()
+            reset_launches()
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                rc = cli.main(argv + ["--steps", str(steps)])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = launch_counts()["K1"]
+            text = out.getvalue()
+            print("  " + "\n  ".join(text.strip().splitlines()))
+            require(rc == 0, f"cli.train.main returned {rc}")
+            exp = captured[-1]
+            require(exp.device.type == dev.type, f"the CLI built its experiment on {exp.device}")
+            resumed = f"[resume] restored step {first} from" in text
+            require(resumed == (first > 0), f"run to {steps}: resume line {resumed}")
+            chunks = -(-exp.H * exp.W // exp.render_cfg.chunk)
+            want = (steps - first) + 3 * chunks
+            print(f"  run to step {steps}: {seconds:.2f} s; K1 launched {launches} times: "
+                  f"{steps - first} train steps + 3 test views x {chunks} chunks = {want}")
+            require(launches == want, f"K1 launched {launches} times, want {want}")
+            eval_line = [line for line in text.splitlines() if line.startswith("[eval]")]
+            require(len(eval_line) == 1, f"no [eval] line in run to {steps}")
+            ckpts = checkpoint.list_checkpoint_steps(os.path.join(expdir, "ckpts"))
+            print(f"  checkpoints after the run to {steps}: {ckpts}")
+            runs.append(dict(seconds=seconds, launches=launches, ckpts=ckpts))
+    finally:
+        driver.build_experiment = build
+    require(runs[0]["ckpts"] == [30, 60], f"checkpoints after 60 steps: {runs[0]['ckpts']}")
+    require(runs[1]["ckpts"] == [30, 60, 80], f"checkpoints after 80: {runs[1]['ckpts']}")
+
+    rows = metric_rows(expdir)
+    for row in rows:
+        bad = [k for k, v in row.items() if isinstance(v, float) and not math.isfinite(v)]
+        require(not bad, f"metrics.jsonl row at step {row['step']}: {bad} not finite")
+    losses = [(r["step"], r["loss"]) for r in rows if "loss" in r]
+    print(f"  logged losses: {[(s, round(v, 5)) for s, v in losses]}")
+    require([s for s, _ in losses] == list(range(10, DRIVER_RESUME_STEPS + 1, 10)),
+            f"logged steps {[s for s, _ in losses]}")
+    require(losses[-1][1] < losses[0][1], f"the last logged loss {losses[-1][1]} is not below "
+                                          f"the first {losses[0][1]}")
+    finals = [r for r in rows if "final_psnr" in r]
+    require([r["step"] for r in finals] == [DRIVER_STEPS, DRIVER_RESUME_STEPS],
+            f"final rows at {[r['step'] for r in finals]}")
+    for r in finals:
+        require(0.0 < r["final_ssim"] < 1.0 and math.isfinite(r["final_psnr"])
+                and r["final_n_views"] == 3, f"final evaluation {r}")
+    timer = {k: rows[-2][k] for k in ("steps", "p50_ms", "p95_ms") if k in rows[-2]}
+
+    records = {"plain": [], "prd": []}
+    prd_matches = []
+    for run, first in zip(captured, (0, DRIVER_STEPS)):
+        for recorder, kind in ((run.step_fn, "plain"), (run.step_prd_fn, "prd")):
+            for step, ms, m in recorder.read():
+                if step > first + 2:  # after each run's first two steps
+                    records[kind].append(ms)
+                if kind == "prd":
+                    prd_matches.append(m["prd_matches"])
+    # PRD ran at its cadence on a real match batch. Only the first PRD step
+    # sees the camera at its initial values, the ground truth, where every
+    # projected match is valid; from there the whole camera trains from
+    # step 0 on a field of random weights, the poses wander, and a match
+    # counts only while both reprojections stay within 5 px^2.
+    require(len(prd_matches) == DRIVER_RESUME_STEPS // 10 and prd_matches[0] > 0,
+            f"prd_matches on the PRD steps: {prd_matches}")
+    exp = captured[-1]
+    with torch.no_grad():
+        from scnerf_tpu_torch.camera.model import get_extrinsics
+
+        moved = (get_extrinsics(exp.state.params["camera"]).cpu()
+                 - torch.from_numpy(exp.gt_poses[exp.i_train])).abs()
+    step_ms = {kind: percentiles(ms) for kind, ms in records.items()}
+    print(f"  both runs, by CUDA events around each step but each run's first two "
+          f"({card}): plain {step_ms['plain']}, PRD {step_ms['prd']}; prd_matches "
+          f"{prd_matches} (the train poses at step 80 off the ground truth by up to "
+          f"{float(moved[:, :3, :3].max()):.4f} in rotation entries and "
+          f"{float(moved[:, :3, 3].max()):.4f} in translation); the loop's StepTimer at step "
+          f"80 (host clock) {timer}")
+    exp.logger = MetricLogger(expdir)  # the CLI closed its own; this one appends
+    plain_fn, prd_fn = exp.step_fn.fn, exp.step_prd_fn.fn
+    exp.step_fn, exp.step_prd_fn = plain_fn, prd_fn
+
+    # The steady loop between print and checkpoint steps never waits for
+    # the device.
+    log = exp.cfg.logging
+    log.i_print = log.i_weights = 10**9
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            driver.train_loop(exp, exp.state.step + DRIVER_TURN_STEPS)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    here = os.path.dirname(os.path.abspath(__file__))
+    sites = sorted({f"{os.path.relpath(w.filename, here)}:{w.lineno}" for w in caught
+                    if "synchroniz" in str(w.message)})
+    print(f"  calls that wait for the device in {DRIVER_TURN_STEPS} loop steps (one with PRD): "
+          f"{sites or 'none'}")
+    require(not sites, f"the steady loop waits for the device at {sites}")
+
+    # The loop against the same step functions on one ready device batch,
+    # in turns: the gap is the host loop's own cost (draws, gather, copies).
+    ready = driver.sample_batch(exp, exp.state.step)
+    ready_prd = dict(ready, **driver.sample_prd_batch(exp))
+    seed = exp.cfg.logging.seed
+
+    def loop_span():
+        driver.train_loop(exp, exp.state.step + DRIVER_TURN_STEPS)
+
+    def ready_span():
+        for _ in range(DRIVER_TURN_STEPS):
+            it = exp.state.step
+            gen = driver.step_generator(seed, it, dev)
+            if it % DRIVER_TURN_STEPS == 0:
+                exp.state, _ = prd_fn(exp.state, ready_prd, gen)
+            else:
+                exp.state, _ = plain_fn(exp.state, ready, gen)
+
+    turns = {"loop": [], "ready": []}
+    for _ in range(DRIVER_TURNS):
+        for name, span in (("loop", loop_span), ("ready", ready_span)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            span()
+            torch.cuda.synchronize()
+            turns[name].append((time.perf_counter() - t0) * 1e3 / DRIVER_TURN_STEPS)
+    loop_ms = statistics.median(turns["loop"])
+    ready_ms = statistics.median(turns["ready"])
+    t0 = time.perf_counter()
+    for it in range(50):
+        driver.sample_batch(exp, it)
+    draw_ms = (time.perf_counter() - t0) * 1e3 / 50
+    torch.cuda.synchronize()
+    rays_per_s = TRAIN_RAYS / loop_ms * 1e3
+    print(f"  spans of {DRIVER_TURN_STEPS} steps (one with PRD), {DRIVER_TURNS} turns each, host "
+          f"clock to a synchronize ({card}): the loop {loop_ms:.3f} ms a step "
+          f"({rays_per_s:.1f} train rays/s), the same steps on one ready batch {ready_ms:.3f} ms; "
+          f"the loop's own cost {loop_ms - ready_ms:.3f} ms a step; sample_batch alone "
+          f"{draw_ms:.3f} ms of host time a call (turns {turns})")
+
+    # The evaluation hooks, with matches between the test views injected.
+    exp.eval_match_cache = projected_matches(exp.gt_poses[exp.i_test], exp.gt_intrinsic,
+                                             FERN_MATCH_POINTS, SEED + 17)
+    exp.eval_pair_list = np.array(exp.eval_match_cache.pairs())
+    log.i_print = log.i_testset = log.i_img = log.camera_log = 2
+    log.i_video = 0
+    hook_step = exp.state.step + 2
+    reset_launches()
+    driver.train_loop(exp, hook_step, eval_hooks=True)
+    torch.cuda.synchronize()
+    hook_launches = launch_counts()["K1"]
+    chunks = -(-exp.H * exp.W // exp.render_cfg.chunk)
+    require(hook_launches == 2 + 3 * chunks,
+            f"K1 launched {hook_launches} times in 2 steps and 3 renders of {chunks} chunks")
+    hook_row = {k: v for r in metric_rows(expdir) if r["step"] == hook_step for k, v in r.items()}
+    for k in ("test/psnr", "test/ssim", "test/prd", "test/prd_val", "val/psnr", "camera/fx",
+              "camera/fx_err", "camera/ray_o_noise_mean"):
+        require(k in hook_row and math.isfinite(hook_row[k]), f"hook metric {k}: "
+                                                              f"{hook_row.get(k)}")
+    val_png = read_png(os.path.join(expdir, f"val_{hook_step:08d}.png"))
+    grid_png = read_png(os.path.join(expdir, "images",
+                                     f"camera_ray_o_noise_{hook_step:08d}.png"))
+    require(val_png.shape == (FERN_H, FERN_W, 3), f"val PNG {val_png.shape}")
+    require(grid_png.shape == tuple(exp.state.params["camera"].ray_o_grid.shape),
+            f"camera-log PNG {grid_png.shape}")
+    print(f"  eval hooks at step {hook_step}: " + ", ".join(
+        f"{k}={hook_row[k]:.5g}" for k in sorted(hook_row) if k.startswith(("test/", "val/"))
+        or k in ("camera/fx", "camera/fx_err")) + f"; val and camera-log PNGs read back; K1 "
+          f"launched {hook_launches} times (2 steps + 3 renders)")
+
+    # One test view: render, SSIM, checkpoint.
+    idx = int(exp.i_test[0])
+    c2w = driver.aligned_eval_extrinsic(exp, idx)
+    render_s = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = driver.render_image(exp, c2w)  # ends in the device-to-host copies
+        render_s.append(time.perf_counter() - t0)
+    rgb = torch.from_numpy(out["rgb"]).to(dev)
+    target = torch.from_numpy(exp.images[idx]).to(dev)
+    ssim_ms = per_call_ms(lambda: ssim(rgb, target), calls=10)
+    ckpt_dir = os.path.join(root, "timed_ckpts")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path = checkpoint.save_checkpoint(ckpt_dir, exp.state)
+    save_ms = (time.perf_counter() - t0) * 1e3
+    ckpt_bytes = os.path.getsize(path)
+    t0 = time.perf_counter()
+    restored = checkpoint.restore_checkpoint(ckpt_dir, exp.state)
+    torch.cuda.synchronize()
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    require(restored.step == exp.state.step, "the timed checkpoint did not restore its step")
+    exp.logger.close()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    seconds = time.perf_counter() - started
+    n_rays = FERN_H * FERN_W
+    print(f"  one {FERN_H}x{FERN_W} test view: {render_s[-1]:.3f} s "
+          f"({n_rays / render_s[-1]:.1f} rays/s; first call {render_s[0]:.3f} s), SSIM "
+          f"{ssim_ms:.3f} ms by CUDA events; checkpoint {ckpt_bytes} bytes, save {save_ms:.1f} "
+          f"ms, restore {restore_ms:.1f} ms; peak memory {peak_gib:.3f} GiB; phase "
+          f"{seconds:.1f} s ({card})")
+    record = dict(
+        driver_launches=runs[0]["launches"] + runs[1]["launches"],
+        driver_run_s=[r["seconds"] for r in runs],
+        driver_step_ms=step_ms, driver_step_timer=timer,
+        driver_loop_ms=loop_ms, driver_ready_ms=ready_ms, driver_draw_ms=draw_ms,
+        driver_rays_per_s=rays_per_s, driver_final=finals[-1],
+        driver_render_s=render_s[-1], driver_render_rays_per_s=n_rays / render_s[-1],
+        driver_ssim_ms=ssim_ms, driver_ckpt_bytes=ckpt_bytes, driver_ckpt_save_ms=save_ms,
+        driver_ckpt_restore_ms=restore_ms, driver_peak_gib=peak_gib,
+        driver_phase_s=seconds)
+    return record, exp, out
+
+
+def phase_driver_cpu_agreement(exp, card_out):
+    """Phase 17: the card's evaluation against the CPU port's from the same
+    weights on one test view, and the SSIM control with TF32 on."""
+    from scnerf_tpu_torch import bridge
+    from scnerf_tpu_torch.metrics import ssim as ssim_module
+    from scnerf_tpu_torch.train import driver
+    from scnerf_tpu_torch.train.step import create_train_state
+
+    print("== phase 17: the driver's evaluation on the card against the CPU port")
+    started = time.perf_counter()
+    cpu = driver.build_experiment(exp.cfg, None, device="cpu")
+    tree = bridge.train_params_to_numpy(exp.state.params)
+    tree["camera"]["config"] = exp.state.params["camera"].config
+    cpu.state = create_train_state(bridge.train_params_to_torch(tree, device="cpu"),
+                                   cpu.optimizer)
+    cpu.eval_pair_list, cpu.eval_match_cache = exp.eval_pair_list, exp.eval_match_cache
+
+    idx = int(exp.i_test[0])
+    card_c2w = driver.aligned_eval_extrinsic(exp, idx).cpu()
+    cpu_c2w = driver.aligned_eval_extrinsic(cpu, idx)
+    pose_err = float((card_c2w - cpu_c2w).abs().max())
+
+    rng = np.random.default_rng(SEED + 17)
+    pick = rng.choice(FERN_H * FERN_W, DRIVER_CPU_RAYS, replace=False)
+    px = torch.from_numpy((pick % FERN_W).astype(np.float32))
+    py = torch.from_numpy((pick // FERN_W).astype(np.float32))
+    cpu_rgb = driver.render_pixels(cpu, card_c2w, px, py)["rgb"].numpy()
+    card_rgb = card_out["rgb"].reshape(-1, 3)[pick]
+    err = np.abs(cpu_rgb - card_rgb)
+    med, worst = float(np.median(err)), float(err.max())
+
+    target = exp.images[idx]
+    rgb_card, target_card = (torch.from_numpy(x).to(exp.device) for x in (card_out["rgb"], target))
+    card_ssim = float(ssim_module.ssim(rgb_card, target_card))
+    cpu_ssim = float(ssim_module.ssim(torch.from_numpy(card_out["rgb"]),
+                                      torch.from_numpy(target)))
+    # The controls: SSIM as JAX computes it, the 2-D window by F.conv2d,
+    # through cuDNN in float32 with the window computed on the CPU and on the
+    # card, through PyTorch's own convolution (cuDNN off), and through cuDNN
+    # with TF32.
+    controls = {
+        "conv2d_cudnn_fp32": conv2d_ssim(rgb_card, target_card, fp32_cudnn, "cpu"),
+        "conv2d_cudnn_fp32_card_window": conv2d_ssim(rgb_card, target_card, fp32_cudnn,
+                                                     exp.device),
+        "conv2d_no_cudnn_fp32": conv2d_ssim(rgb_card, target_card, fp32_no_cudnn, "cpu"),
+        "conv2d_cudnn_tf32": conv2d_ssim(rgb_card, target_card, tf32_on, "cpu"),
+        "conv2d_cpu": conv2d_ssim(torch.from_numpy(card_out["rgb"]), torch.from_numpy(target),
+                                  contextlib.nullcontext, "cpu"),
+    }
+    # The val protocol evaluates the learned intrinsics and ray noise with
+    # the GT poses. After 150 steps they sit at the ground truth, and PRD
+    # reads float32's rounding (about 5e-7 px^2, printed); so it is compared
+    # with the learned intrinsics moved by a few pixels, on both devices
+    # alike, where each match's distance is a few px^2.
+    trained = [driver.evaluate_prd_split(e, mode="val")["prd_val"] for e in (exp, cpu)]
+    for e in (exp, cpu):
+        with torch.no_grad():
+            noise = e.state.params["camera"].intrinsics_noise
+            noise.add_(torch.tensor(PRD_INTRINSICS_MOVE, device=noise.device))
+    card_prd = driver.evaluate_prd_split(exp, mode="val")["prd_val"]
+    cpu_prd = driver.evaluate_prd_split(cpu, mode="val")["prd_val"]
+    rel = abs(card_prd - cpu_prd) / max(abs(cpu_prd), 1e-30)
+    print(f"  aligned_eval_extrinsic max|err|={pose_err:.3e}; render rgb on {DRIVER_CPU_RAYS} "
+          f"pixels median|err|={med:.3e} max|err|={worst:.3e}; ssim card {card_ssim:.8f} cpu "
+          f"{cpu_ssim:.8f} (|diff| {abs(card_ssim - cpu_ssim):.3e}); prd_val with the trained "
+          f"camera card {trained[0]:.4e} cpu {trained[1]:.4e}, with the intrinsics moved by "
+          f"{PRD_INTRINSICS_MOVE} px card {card_prd:.8f} cpu {cpu_prd:.8f} (rel {rel:.3e}); "
+          f"{time.perf_counter() - started:.1f} s")
+    diffs = {name: abs(v - cpu_ssim) for name, v in controls.items()}
+    for name, v in controls.items():
+        print(f"  control, ssim by {name}: {v:.8f}, |diff| {diffs[name]:.3e} from the port's on "
+              f"the CPU (limit 1e-6: {'broken' if diffs[name] >= 1e-6 else 'kept'})")
+    require(pose_err < 1e-5, f"aligned_eval_extrinsic max |err| {pose_err:.3e} >= 1e-5")
+    require(med < 1e-5 and worst < 1e-3, f"render_image rgb median|err|={med:.3e} "
+                                         f"max|err|={worst:.3e}")
+    require(abs(card_ssim - cpu_ssim) < 1e-6, f"ssim card {card_ssim} cpu {cpu_ssim}")
+    require(rel < 1e-5, f"evaluate_prd_split card {card_prd} cpu {cpu_prd} (rel {rel:.3e})")
+    return dict(driver_cpu_pose_err=pose_err, driver_cpu_rgb_median_err=med,
+                driver_cpu_rgb_max_err=worst, driver_cpu_ssim_diff=abs(card_ssim - cpu_ssim),
+                driver_cpu_prd_rel=rel,
+                **{f"driver_ssim_{name}_diff": d for name, d in diffs.items()})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on an NVIDIA card",
@@ -2088,6 +2629,11 @@ def main() -> int:
     fisheye_record = phase_nerfpp_fisheye(dev, card)
     phase_nerfpp_train_cpu_agreement(dev)
 
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_driver_") as root:
+        driver_record, driver_exp, driver_out = phase_driver(dev, card, root)
+        driver_record.update(phase_driver_cpu_agreement(driver_exp, driver_out))
+        del driver_exp, driver_out
+
     seconds = time.perf_counter() - started
     print(f"chip_smoke: {seconds:.1f} s in all, the kernels' build included")
     print(json.dumps({"kernels": [{
@@ -2099,6 +2645,7 @@ def main() -> int:
         "launches": launches,
         "train_launches": train_record["train_launches"],
         "train_max_abs_err": train_record["train_max_abs_err"],
+        "driver_launches": driver_record["driver_launches"],
         **record,
     }, {
         "name": "sample_pdf_nerfpp",
@@ -2127,7 +2674,8 @@ def main() -> int:
         "replaces": "scnerf_tpu/kernels/mlp_pallas.py:85",
         "launches": field_launches,
         **field_record,
-    }], "train": {**train_record, **prd_record, **pp_train_record, **fisheye_record},
+    }], "train": {**train_record, **prd_record, **pp_train_record, **fisheye_record,
+                  **driver_record},
         "seconds": seconds}))
     print(card)
     print(json.dumps({"ok": True, "device": {

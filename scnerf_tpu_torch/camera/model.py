@@ -1,6 +1,6 @@
 """The learnable generic camera.
 
-Port of ``scnerf_tpu/camera/model.py`` without its logging helpers:
+Port of ``scnerf_tpu/camera/model.py``:
 
 - pinhole intrinsics ``[fx, fy, cx, cy]`` = frozen initial + noise
   (optionally multiplicative),
@@ -8,7 +8,8 @@ Port of ``scnerf_tpu/camera/model.py`` without its logging helpers:
   + noise, decoded through Gram-Schmidt,
 - radial distortion ``(k1, k2)`` = frozen initial + noise,
 - ray-origin / ray-direction noise on a coarse ``(H//g, W//g, 3)`` grid,
-  interpolated at the requested pixels.
+  interpolated at the requested pixels;
+- the logging helpers :func:`camera_log_dict` and :func:`camera_log_images`.
 
 The state is a plain dataclass of tensors; the leaves have the JAX names and
 shapes, so ``bridge.py`` copies them one to one. For training,
@@ -234,3 +235,79 @@ def ray_d_noise_at(camera: Camera, px, py) -> torch.Tensor:
     if cfg.tied_ray_noise:
         grid = camera.ray_o_grid.detach() + grid
     return sample_noise_grid(grid, px, py, cfg.H, cfg.W) * cfg.ray_d_noise_scale
+
+
+# --------------------------------------------------------------------------
+# Logging (the reference's CameraModel.log_noises, camera_model.py:54-117)
+# --------------------------------------------------------------------------
+
+def radial_distortion_field(k: np.ndarray, H: int, W: int) -> np.ndarray:
+    """Per-pixel displacement magnitude of the radial model about the image
+    centre: an (H, W) float field (the JAX package's
+    ``tools/visualize.py:radial_distortion_field``)."""
+    cx, cy = W / 2, H / 2
+    py, px = np.mgrid[0:H, 0:W].astype(np.float64)
+    rx = (px - cx) / cx
+    ry = (py - cy) / cy
+    dx = (px - cx) * (rx**2 * k[0] + rx**4 * k[1])
+    dy = (py - cy) * (ry**2 * k[0] + ry**4 * k[1])
+    return np.sqrt(dx**2 + dy**2)
+
+
+def camera_log_images(camera: Camera) -> dict:
+    """Image summaries of the reference's ``log_noises`` dashboard: the
+    rayo/rayd noise grids as min-max-normalized RGB and, for distortion
+    cameras, the radial warp magnitude field. numpy ``(h, w, 3)`` each;
+    reads the device."""
+    def normalize(g):
+        g = np.asarray(g, np.float32)
+        lo, hi = g.min(), g.max()
+        return (g - lo) / (hi - lo) if hi > lo else np.zeros_like(g)
+
+    o_grid, d_grid = camera.ray_o_grid.detach(), camera.ray_d_grid.detach()
+    if camera.config.tied_ray_noise:
+        o_grid = d_grid = o_grid + d_grid  # the shared effective value
+    out = {
+        "camera/ray_o_noise": normalize(o_grid.cpu().numpy()),
+        "camera/ray_d_noise": normalize(d_grid.cpu().numpy()),
+    }
+    if camera.config.use_distortion:
+        k = get_distortion(camera).detach().cpu().numpy()
+        field = normalize(radial_distortion_field(
+            k, max(camera.config.H, 2), max(camera.config.W, 2)))
+        out["camera/radial_field"] = np.repeat(field[..., None], 3, axis=-1)
+    return out
+
+
+@torch.no_grad()
+def camera_log_dict(camera: Camera, gt_K=None, gt_E=None) -> dict:
+    """Scalar diagnostics of the reference's dashboard, as 0-d tensors on
+    the camera's device (the logger reads them)."""
+    K = get_intrinsic(camera)
+    out = {
+        "camera/fx": K[0, 0],
+        "camera/fy": K[1, 1],
+        "camera/cx": K[0, 2],
+        "camera/cy": K[1, 2],
+    }
+    if gt_K is not None:
+        gt_K = torch.as_tensor(gt_K, dtype=K.dtype, device=K.device)
+        out["camera/fx_err"] = torch.abs(K[0, 0] - gt_K[0, 0])
+        out["camera/fy_err"] = torch.abs(K[1, 1] - gt_K[1, 1])
+        out["camera/cx_err"] = torch.abs(K[0, 2] - gt_K[0, 2])
+        out["camera/cy_err"] = torch.abs(K[1, 2] - gt_K[1, 2])
+    E = get_extrinsics(camera)
+    out["camera/extrinsic_noise_mean"] = torch.mean(torch.abs(E))
+    # ddof 0, as jnp.std
+    out["camera/extrinsic_noise_std"] = torch.std(torch.abs(E), correction=0)
+    if gt_E is not None:
+        gt_E = torch.as_tensor(gt_E, dtype=E.dtype, device=E.device)
+        out["camera/extrinsic_err"] = torch.mean(torch.abs(E - gt_E))
+    cfg = camera.config
+    out["camera/ray_o_noise_mean"] = torch.mean(torch.abs(camera.ray_o_grid)) * cfg.ray_o_noise_scale
+    out["camera/ray_d_noise_mean"] = torch.mean(torch.abs(camera.ray_d_grid)) * cfg.ray_d_noise_scale
+    if cfg.use_distortion:
+        k = get_distortion(camera)
+        out["camera/k1"] = k[0]
+        out["camera/k2"] = k[1]
+    return out

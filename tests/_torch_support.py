@@ -146,3 +146,51 @@ def assert_gradients_close(t_grads, j_grads, rel_l2=1e-4, cosine=0.9999):
         rel = np.linalg.norm(got - want) / norm
         cos = float((got * want).sum() / (np.linalg.norm(got) * norm))
         assert rel <= rel_l2 and cos >= cosine, (path, rel, cos)
+
+
+def smooth_texture(rng, H, W, n_waves=4):
+    """An (H, W, 3) float image in [0.05, 0.95]: a sum of ``n_waves`` seeded
+    sinusoids per channel (smooth, so SSIM lies strictly between 0 and 1)."""
+    yy, xx = np.mgrid[0:H, 0:W].astype(np.float64)
+    img = np.zeros((H, W, 3))
+    for c in range(3):
+        for _ in range(n_waves):
+            fx, fy = rng.uniform(0.5, 3.0, 2) * 2 * np.pi / np.array([W, H])
+            img[..., c] += np.sin(fx * xx + fy * yy + rng.uniform(0, 2 * np.pi))
+    return 0.5 + 0.45 * img / n_waves
+
+
+def write_llff_scene(root, n_views=8, H=24, W=32, factor=8, seed=0, focal_full=260.0):
+    """A seeded forward-facing LLFF scene: ``poses_bounds.npy`` (the hwf
+    column at the full size, ``factor`` times ``(H, W)``) and ``n_views``
+    ``(H, W)`` PNGs of smooth textures in both ``images/`` and
+    ``images_{factor}/`` (the loader reads the latter), written by the
+    port's ``write_png``. Cameras on a small patch of the plane z = 0
+    looking down -z with a few degrees of rotation each."""
+    from scnerf_tpu_torch.core.imaging import to8b, write_png
+
+    rng = np.random.RandomState(seed)
+    root = str(root)
+    os.makedirs(root, exist_ok=True)
+    rows = []
+    for i in range(n_views):
+        ang = np.deg2rad(rng.uniform(-3, 3, 3))
+        cx, cy, cz = np.cos(ang)
+        sx, sy, sz = np.sin(ang)
+        Rx = np.array([[1, 0, 0], [0, cx, -sx], [0, sx, cx]])
+        Ry = np.array([[cy, 0, sy], [0, 1, 0], [-sy, 0, cy]])
+        Rz = np.array([[cz, -sz, 0], [sz, cz, 0], [0, 0, 1]])
+        R = Rz @ Ry @ Rx  # columns: right, up, back (OpenGL)
+        t = np.array([rng.uniform(-0.5, 0.5), rng.uniform(-0.4, 0.4), rng.uniform(-0.1, 0.1)])
+        # LLFF stores [down, right, back, t, hwf]: the loader maps it to
+        # [right, up, back].
+        stored = np.stack([-R[:, 1], R[:, 0], R[:, 2], t,
+                           [H * factor, W * factor, focal_full]], axis=1)
+        rows.append(np.concatenate([stored.reshape(-1), [2.0, 12.0]]))
+    np.save(os.path.join(root, "poses_bounds.npy"), np.asarray(rows))
+    for i in range(n_views):
+        img = to8b(smooth_texture(rng, H, W))
+        for sub in ("images", f"images_{factor}"):
+            os.makedirs(os.path.join(root, sub), exist_ok=True)
+            write_png(os.path.join(root, sub, f"img_{i:03d}.png"), img)
+    return root
