@@ -1,5 +1,6 @@
 """Drive the PyTorch port's NeRF and NeRF++ serving paths, its NeRF and
-NeRF++ train steps and its NeRF training CLI once on an NVIDIA card.
+NeRF++ train steps, its NeRF and NeRF++ training CLI and its render CLI once
+on an NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -188,6 +189,45 @@ the JAX package. Phases, each of which exits non-zero when it fails:
     through cuDNN in float32 (the window computed on the CPU and on the
     card), without cuDNN, through cuDNN with TF32, and on the CPU.
 
+18. The NeRF++ training CLI at full Truck width: ``cli.train.main``
+    in-process with ``configs/tanks_and_temples/tat_training_Truck_ours.txt``
+    as it stands (fg and bg MLPNets 8x256, multires 10/4, cascade 64,128,
+    N_rand 256, eval chunks of 4,096, multiplicative intrinsics noise, PRD
+    one step in ten) on a seeded scene of Truck's shape: a ``train/`` split
+    of phase 6's 12 poses and a ``validation/`` split of one more, 546x980
+    smooth seeded textures, ``intrinsics/`` and ``pose/`` files, and
+    ``matches.npz`` projected from 200 seeded points in OpenCV's
+    convention. ``--ray_loss_type proj_ray_dist --add_ie 0 --add_od 0
+    --add_prd 0 --i_print 10 --i_weights 30 --i_testset 60 --i_img 60
+    --camera_log 30``, 60 steps: every logged metric finite, checkpoints at
+    30 and 60, the hooks' metrics and PNGs (read back), valid matches on the
+    first PRD step, K2 twice a train step (once with the CDF) and twice a
+    chunk of the hooks' held-out renders; then ten loop steps (one with
+    PRD) with no wait on the device, the loop's ms a step and train rays/s
+    over spans of ten, one held-out view's render time, SSIM's time, a
+    checkpoint's bytes and save time, peak memory; each step's ms by CUDA
+    events, plain and PRD apart; the loop against the same steps on a ready
+    batch in turns, and the host batch's draws alone.
+19. The render CLI: ``cli.render.main --split test --max_views 1`` on
+    phase 18's experiment (restores step 60, writes ``000.png``,
+    ``000_fg.png``, ``000_bg.png``, ``000_depth.png`` and the summary, read
+    back; K2 twice a chunk of its two renders) and on phase 16's (K1 once a
+    chunk of two renders), ``cli.train.main --render_only True --render_test
+    True`` on phase 16's (the same), and ``render_training_video`` of three
+    frames (K1 once a chunk; the video, or its ``.npz`` without an
+    encoder).
+20. Phase 18's trained experiment carried to the CPU port: rgb, fg_rgb and
+    bg_rgb of 1,024 seeded pixels of the held-out view through the learned
+    camera at its pose, median |err| < 1e-5 and max < 1e-3; SSIM of the
+    card's render against its target on both devices within 1e-6;
+    ``evaluate_nerfpp_prd`` within relative 1e-5 at the trained camera (or,
+    where its distances read float32's rounding, with the learned
+    intrinsics moved by about a pixel), the CPU's own spread under one-ulp
+    moves of the keypoints, the initial intrinsics or the initial poses
+    printed beside it; LPIPS with seeded random VGG16
+    weights within relative 1e-4 (and its time on the card); the control,
+    LPIPS with cuDNN's TF32 on, printed.
+
 Each serving path, each of K3's and K4's own paths and each train path run
 with the kernels' launch counts set to 0 just before and read just after. The
 line before the last is one JSON object with the kernels' numbers, each with
@@ -196,8 +236,10 @@ the least time the card could take for its work (``bound_ms``: bytes over
 at 67 TFLOP/s or, for K3, three TF32 passes at 495 TFLOP/s; the larger), K1's
 and K2's with their launches on the train paths too (K2's with its shape,
 error, times and bound on the NeRF++ train step's inputs), the train
-metrics (the driver's of phases 16-17 among them, and K1's launches in phase
-16 as ``driver_launches``) and the script's wall time; the line before it is
+metrics (the driver's of phases 16-20 among them, K1's launches in phase 16
+as ``driver_launches`` and in phase 19 as ``render_cli_launches``, K2's in
+phase 18 as ``driver_launches`` and in phase 19 as ``render_cli_launches``)
+and the script's wall time; the line before it is
 the card's name and power limit; the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -330,6 +372,24 @@ def in_turns(fns: dict, calls: int, repeats: int, *, host_only: bool = False) ->
 def per_call_ms(fn, calls: int = TIMING_CALLS, repeats: int = TIMING_REPEATS) -> float:
     """Milliseconds per call of ``fn`` alone, by :func:`in_turns`."""
     return in_turns({"fn": fn}, calls, repeats)["fn"]
+
+
+def device_ms(fn, calls: int = TIMING_CALLS) -> float:
+    """Device time of one call of ``fn``: the time of its kernels under
+    ``torch.profiler`` over ``calls`` calls, over the count."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA)
+    require(total > 0, "the profiler saw no device time")
+    return total / 1e3 / calls
 
 
 def rodrigues(axis: np.ndarray, angle: np.ndarray) -> np.ndarray:
@@ -680,6 +740,21 @@ def make_nerfpp_slice(dev):
     return model_cfg, render_cfg, levels, camera
 
 
+def nerfpp_poses(n: int = PP_IMAGES, seed: int = 3):
+    """bench.py's NeRF++ intrinsics (546x980, focal 580) and ``n`` seeded
+    OpenCV c2w poses near the origin, each within 0.3 rad of looking down
+    +z."""
+    rng = np.random.RandomState(seed)
+    K = np.array([[PP_FOCAL, 0, PP_W / 2, 0], [0, PP_FOCAL, PP_H / 2, 0],
+                  [0, 0, 1, 0], [0, 0, 0, 1]])
+    axis = rng.randn(n, 3)
+    axis /= np.linalg.norm(axis, axis=1, keepdims=True)
+    E = np.tile(np.eye(4), (n, 1, 1))
+    E[:, :3, :3] = rodrigues(axis, rng.rand(n) * 0.3)
+    E[:, :3, 3] = rng.randn(n, 3) * 0.2
+    return K, E
+
+
 def nerfpp_camera(device, *, fisheye: bool = False):
     """bench.py's NeRF++ camera at its initial values: OpenCV (pixel offset
     0.5) at 546x980, focal 580, 12 seeded poses inside the unit sphere,
@@ -687,14 +762,7 @@ def nerfpp_camera(device, *, fisheye: bool = False):
     (radial k = (-0.1, 0.03), tied ray noise)."""
     from scnerf_tpu_torch.camera import CameraConfig, OPENCV, init_camera
 
-    rng = np.random.RandomState(3)
-    K = np.array([[PP_FOCAL, 0, PP_W / 2, 0], [0, PP_FOCAL, PP_H / 2, 0],
-                  [0, 0, 1, 0], [0, 0, 0, 1]])
-    axis = rng.randn(PP_IMAGES, 3)
-    axis /= np.linalg.norm(axis, axis=1, keepdims=True)
-    E = np.tile(np.eye(4), (PP_IMAGES, 1, 1))
-    E[:, :3, :3] = rodrigues(axis, rng.rand(PP_IMAGES) * 0.3)
-    E[:, :3, 3] = rng.randn(PP_IMAGES, 3) * 0.2
+    K, E = nerfpp_poses()
     cfg = CameraConfig(H=PP_H, W=PP_W, convention=OPENCV, pixel_offset=0.5,
                        multiplicative_noise=True, use_distortion=fisheye,
                        tied_ray_noise=fisheye)
@@ -1783,16 +1851,34 @@ def k2_on_train_inputs(dev, calls):
                                                           variant="nerfpp"))
                 bwd_ms = per_call_ms(lambda: pdf_cuda.sample_pdf_diff_backward(
                     cot, bins_d, weights, u, inds, cdf, "nerfpp"))
+                # torch.searchsorted on the rows K2 searches (the CDF without
+                # its last entry), in turns with K2's forward: by events and
+                # on the device.
+                searched = cdf[:, :-1].contiguous()
+                fns = {"kernel": lambda: pdf_cuda.sample_pdf_fwd(bins_d, weights, u,
+                                                                 with_cdf=True),
+                       "searchsorted": lambda: torch.searchsorted(searched, u, right=True,
+                                                                  out_int32=True)}
+                turns = in_turns(fns, TIMING_CALLS, K4_TIMING_TURNS)
+                on_device = {name: device_ms(fn) for name, fn in fns.items()}
             # The forward with the CDF: reads bins, weights and u, writes the
             # depths, the counts and the CDF.
             bnd = bound(4 * (n * b + n * (b - 1) + 3 * n * s + n * b),
                         n * s * (math.ceil(math.log2(b)) + 6) + 3 * n * (b - 1))
             line += (f"; gradient into bins off in {frac:.2e} of entries; forward with CDF "
                      f"{fwd_ms:.4f} ms by events (plain twin {plain_ms:.4f}, bound "
-                     f"{bnd['bound_ms']:.5f}), backward {bwd_ms:.4f} ms")
+                     f"{bnd['bound_ms']:.5f}), backward {bwd_ms:.4f} ms; in turns with "
+                     f"torch.searchsorted on its rows ({n},{b - 1}) and queries ({n},{s}): "
+                     f"events {turns['kernel']:.4f} against {turns['searchsorted']:.4f} ms, "
+                     f"device {on_device['kernel']:.5f} against "
+                     f"{on_device['searchsorted']:.5f} ms")
             record = dict(train_shape=[n, b, s], train_max_abs_err=mx, train_ms=fwd_ms,
                           train_plain_ms=plain_ms, train_bound_ms=bnd["bound_ms"],
-                          train_backward_ms=bwd_ms, train_grad_share_off=frac)
+                          train_backward_ms=bwd_ms, train_grad_share_off=frac,
+                          train_turns_ms=turns["kernel"],
+                          train_searchsorted_ms=turns["searchsorted"],
+                          train_device_ms=on_device["kernel"],
+                          train_searchsorted_device_ms=on_device["searchsorted"])
         print(line)
     return record
 
@@ -2121,6 +2207,27 @@ DRIVER_CPU_RAYS = 1024
 PRD_INTRINSICS_MOVE = (30.0, -20.0, 15.0, -10.0)  # fx, fy, cx, cy in pixels (phase 17)
 
 
+def smooth_texture(rng, h: int, w: int) -> np.ndarray:
+    """An ``(h, w, 3)`` image in [0.05, 0.95]: four seeded sinusoids a
+    channel."""
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float64)
+    img = np.zeros((h, w, 3))
+    for c in range(3):
+        for _ in range(4):
+            fx, fy = rng.uniform(0.5, 3.0, 2) * 2 * np.pi / np.array([w, h])
+            img[..., c] += np.sin(fx * xx + fy * yy + rng.uniform(0, 2 * np.pi))
+    return 0.5 + 0.45 * img / 4
+
+
+def fern_argv(root: str) -> list:
+    """Phase 16's training flags: the fern config on the scene under
+    ``root/fern``, logging under ``root/logs``, the whole camera and PRD
+    from step 0."""
+    return ["--config", FERN_CONFIG, "--datadir", os.path.join(root, "fern"),
+            "--basedir", os.path.join(root, "logs"), "--add_ie", "0", "--add_od", "0",
+            "--add_prd", "0", "--i_print", "10", "--i_weights", "30"]
+
+
 def write_fern_scene(root: str) -> str:
     """A seeded forward-facing LLFF scene of fern's shape under ``root``:
     ``poses_bounds.npy`` for 20 views with fern's hwf column and seeded
@@ -2142,14 +2249,8 @@ def write_fern_scene(root: str) -> str:
         rows.append(np.concatenate([stored.reshape(-1), FERN_BOUNDS]))
     os.makedirs(root)
     np.save(os.path.join(root, "poses_bounds.npy"), np.asarray(rows))
-    yy, xx = np.mgrid[0:FERN_H, 0:FERN_W].astype(np.float64)
     for i in range(FERN_VIEWS):
-        img = np.zeros((FERN_H, FERN_W, 3))
-        for c in range(3):
-            for _ in range(4):
-                fx, fy = rng.uniform(0.5, 3.0, 2) * 2 * np.pi / np.array([FERN_W, FERN_H])
-                img[..., c] += np.sin(fx * xx + fy * yy + rng.uniform(0, 2 * np.pi))
-        png = to8b(0.5 + 0.45 * img / 4)
+        png = to8b(smooth_texture(rng, FERN_H, FERN_W))
         for sub in ("images", "images_8"):
             os.makedirs(os.path.join(root, sub), exist_ok=True)
             write_png(os.path.join(root, sub, f"IMG_{i:04d}.png"), png)
@@ -2247,9 +2348,7 @@ def phase_driver(dev, card, root):
           f"{data.i_test.tolist()}; matches.npz: {len(n_matches)} pairs, {min(n_matches)}-"
           f"{max(n_matches)} matches a pair; written in {time.perf_counter() - started:.2f} s")
 
-    argv = ["--config", FERN_CONFIG, "--datadir", scene, "--basedir", logs,
-            "--add_ie", "0", "--add_od", "0", "--add_prd", "0",
-            "--i_print", "10", "--i_weights", "30"]
+    argv = fern_argv(root)
     captured = []
     build = driver.build_experiment
 
@@ -2563,6 +2662,539 @@ def phase_driver_cpu_agreement(exp, card_out):
                 **{f"driver_ssim_{name}_diff": d for name, d in diffs.items()})
 
 
+# Phases 18-20: the NeRF++ training CLI and the render CLI on a seeded scene
+# of Truck's shape (configs/tanks_and_temples/tat_training_Truck_ours.txt as
+# it stands: fg and bg 8x256, multires 10/4, cascade 64,128, N_rand 256,
+# chunk 4096, multiplicative intrinsics noise).
+TRUCK_CONFIG = os.path.join("configs", "tanks_and_temples", "tat_training_Truck_ours.txt")
+TRUCK_SCENE = "tat_training_Truck"  # the config's scene, joined to --datadir
+TRUCK_EXP = "tat_training_Truck_ours"
+TRUCK_HELD_OUT_SEED = 18
+TRUCK_MATCH_POINTS = 200
+TRUCK_STEPS = 60
+TRUCK_TURN_STEPS = 10  # one PRD step in each span of ten (i_ray_dist_loss 10)
+TRUCK_TURNS = 3
+TRUCK_RAYS = 256
+TRUCK_CPU_RAYS = 1024
+TRUCK_PRD_INTRINSICS_MOVE = (1.0, -1.0, 0.5, -0.5)  # fx, fy, cx, cy in pixels (phase 20)
+
+
+def write_truck_scene(root: str):
+    """A seeded NeRF++ scene of Truck's shape at ``root``: a ``train/``
+    split of phase 6's 12 poses and a ``validation/`` split of one more,
+    each with 546x980 smooth seeded textures in ``rgb/`` (written by
+    ``core/imaging.write_png``) and ``intrinsics/`` and ``pose/`` text
+    files. Returns the train K and poses."""
+    from scnerf_tpu_torch.core.imaging import to8b, write_png
+
+    rng = np.random.RandomState(SEED + 18)
+    K, train = nerfpp_poses()
+    _, held = nerfpp_poses(1, seed=TRUCK_HELD_OUT_SEED)
+    for split, poses in (("train", train), ("validation", held)):
+        for sub in ("rgb", "intrinsics", "pose"):
+            os.makedirs(os.path.join(root, split, sub))
+        for i, c2w in enumerate(poses):
+            write_png(os.path.join(root, split, "rgb", f"{i:05d}.png"),
+                      to8b(smooth_texture(rng, PP_H, PP_W)))
+            for sub, m in (("intrinsics", K), ("pose", c2w)):
+                with open(os.path.join(root, split, sub, f"{i:05d}.txt"), "w") as f:
+                    f.write(" ".join(repr(float(v)) for v in m.reshape(-1)))
+    return K, train
+
+
+def opencv_matches(K, poses, n_points: int, seed: int):
+    """Matches between every pair of ``poses`` (c2w, OpenCV): seeded points
+    in front of the cameras projected into both images (the keypoint of a
+    point is the pixel whose centre, ``kp + 0.5``, sees it), those inside
+    both kept."""
+    from scnerf_tpu_torch.matching.provider import PairMatches, PrecomputedMatches
+
+    pts = np.random.RandomState(seed).uniform([-1.0, -0.6, 2.0], [1.0, 0.6, 4.0],
+                                              (n_points, 3))
+    kps, inside = [], []
+    for c2w in poses:
+        cam = (pts - c2w[:3, 3]) @ c2w[:3, :3]
+        pix = cam @ K[:3, :3].T
+        k = (pix[:, :2] / pix[:, 2:3] - 0.5).astype(np.float32)
+        kps.append(k)
+        inside.append((cam[:, 2] > 0) & (k[:, 0] >= 0) & (k[:, 0] < PP_W - 1)
+                      & (k[:, 1] >= 0) & (k[:, 1] < PP_H - 1))
+    cache = PrecomputedMatches()
+    for i in range(len(poses)):
+        for j in range(i + 1, len(poses)):
+            keep = inside[i] & inside[j]
+            cache.put(i, j, PairMatches(kps[i][keep], kps[j][keep]))
+    return cache
+
+
+def truck_argv(root: str) -> list:
+    """Phase 18's training flags: the Truck config on the scene under
+    ``root``, the whole camera and PRD from step 0, the hooks at 10, 30 and
+    60 steps."""
+    return ["--config", TRUCK_CONFIG, "--datadir", root, "--basedir", os.path.join(root, "logs"),
+            "--ray_loss_type", "proj_ray_dist", "--add_ie", "0", "--add_od", "0",
+            "--add_prd", "0", "--i_print", "10", "--i_weights", "30", "--i_testset", "60",
+            "--i_img", "60", "--camera_log", "30"]
+
+
+def finite_rows(expdir: str) -> list:
+    rows = metric_rows(expdir)
+    for row in rows:
+        bad = [k for k, v in row.items() if isinstance(v, float) and not math.isfinite(v)]
+        require(not bad, f"metrics.jsonl row at step {row['step']}: {bad} not finite")
+    return rows
+
+
+def phase_truck_driver(dev, card, root):
+    """Phase 18: the NeRF++ training CLI on the card at Truck's full width
+    on a seeded scene of Truck's shape: 60 steps with every hook, the
+    loop's own pace, no wait on the device, a held-out render, SSIM and a
+    checkpoint."""
+    import io
+    import warnings
+
+    from scnerf_tpu_torch.cli import train as cli
+    from scnerf_tpu_torch.core.imaging import read_png
+    from scnerf_tpu_torch.matching.provider import pad_matches
+    from scnerf_tpu_torch.metrics.ssim import ssim
+    from scnerf_tpu_torch.train import checkpoint, driver, nerfpp_driver
+
+    print("== phase 18: the NeRF++ training CLI at full Truck width on the card (seeded "
+          "Truck-shaped scene)")
+    started = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K, poses = write_truck_scene(os.path.join(root, TRUCK_SCENE))
+    expdir = os.path.join(root, "logs", TRUCK_EXP)
+    os.makedirs(expdir)
+    matches = opencv_matches(K, poses, TRUCK_MATCH_POINTS, SEED + 18)
+    matches.save(os.path.join(expdir, "matches.npz"))
+    n_matches = [matches.get(i, j).kps0.shape[0] for i, j in matches.pairs()]
+    print(f"  scene: {PP_IMAGES} train views and 1 validation view of {PP_H}x{PP_W}; "
+          f"matches.npz: {len(n_matches)} pairs, {min(n_matches)}-{max(n_matches)} matches a "
+          f"pair; written in {time.perf_counter() - started:.2f} s")
+
+    argv = truck_argv(root)
+    captured = []
+    build = nerfpp_driver.build_nerfpp_experiment
+
+    def capturing(*args, **kwargs):
+        exp = build(*args, **kwargs)
+        exp.step_fn = StepRecorder(exp.step_fn)
+        exp.step_prd_fn = StepRecorder(exp.step_prd_fn)
+        captured.append(exp)
+        return exp
+
+    nerfpp_driver.build_nerfpp_experiment = capturing
+    try:
+        torch.cuda.synchronize()
+        reset_launches()
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(argv + ["--steps", str(TRUCK_STEPS)])
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        counts = launch_counts()
+    finally:
+        nerfpp_driver.build_nerfpp_experiment = build
+    text = out.getvalue().strip()
+    if text:
+        print("  " + "\n  ".join(text.splitlines()))
+    require(rc == 0, f"cli.train.main returned {rc}")
+    exp = captured[-1]
+    require(exp.device.type == dev.type, f"the CLI built its experiment on {exp.device}")
+    held = nerfpp_driver._held_out_data(exp)
+    n_held = held.H * held.W
+    chunks = -(-n_held // exp.render_cfg.chunk)
+    renders = min(2, held.poses.shape[0]) + 1  # i_testset's views and i_img's
+    want = 2 * TRUCK_STEPS + 2 * renders * chunks
+    print(f"  {TRUCK_STEPS} steps in {run_s:.2f} s; K2 launched {counts['K2']} times "
+          f"({counts['K2 with CDF']} with the CDF): 2 x {TRUCK_STEPS} train steps + 2 x "
+          f"{renders} held-out renders x {chunks} chunks = {want}")
+    require(counts["K2"] == want and counts["K2 with CDF"] == TRUCK_STEPS,
+            f"K2 launched {counts['K2']} times ({counts['K2 with CDF']} with the CDF), want "
+            f"{want} ({TRUCK_STEPS})")
+    require(counts["K1"] == 0, f"K1 launched {counts['K1']} times on the NeRF++ path")
+    ckpts = checkpoint.list_checkpoint_steps(os.path.join(expdir, "ckpts"))
+    require(ckpts == [30, 60], f"checkpoints after {TRUCK_STEPS} steps: {ckpts}")
+
+    rows = finite_rows(expdir)
+    losses = [(r["step"], r["loss"]) for r in rows if "loss" in r]
+    require([s for s, _ in losses] == list(range(10, TRUCK_STEPS + 1, 10)),
+            f"logged steps {[s for s, _ in losses]}")
+    hook = {k: v for r in rows if r["step"] == TRUCK_STEPS for k, v in r.items()}
+    for k in ("test/psnr", "test/ssim", "test/prd", "camera/fx", "camera/fx_err"):
+        require(k in hook and math.isfinite(hook[k]), f"hook metric {k}: {hook.get(k)}")
+    require(hook.get("test/split") == "heldout", f"test split {hook.get('test/split')}")
+    for name in ("val_rgb", "val_fg_rgb", "val_bg_rgb", "val_fg_depth"):
+        png = read_png(os.path.join(expdir, "images", f"{name}_{TRUCK_STEPS:08d}.png"))
+        require(png.shape == (PP_H, PP_W, 3), f"{name} panel {png.shape}")
+    grid = read_png(os.path.join(expdir, "images", "camera_ray_o_noise_00000030.png"))
+    require(grid.shape == tuple(exp.state.params["camera"].ray_o_grid.shape),
+            f"camera-log PNG {grid.shape}")
+
+    records = {"plain": [], "prd": []}
+    prd_matches = []
+    for recorder, kind in ((exp.step_fn, "plain"), (exp.step_prd_fn, "prd")):
+        for step, ms, m in recorder.read():
+            if step > 2:
+                records[kind].append(ms)
+            if kind == "prd":
+                prd_matches.append(m["prd_matches"])
+    require(len(prd_matches) == TRUCK_STEPS // TRUCK_TURN_STEPS and prd_matches[0] > 0,
+            f"prd_matches on the PRD steps: {prd_matches}")
+    step_ms = {kind: percentiles(ms) for kind, ms in records.items()}
+    print(f"  logged losses {[(s, round(v, 5)) for s, v in losses]}; hooks at step "
+          f"{TRUCK_STEPS}: " + ", ".join(f"{k}={hook[k]:.5g}" for k in sorted(hook)
+                                         if k.startswith("test/") and k != "test/split")
+          + "; panels and camera-log PNGs read back")
+    print(f"  each step by CUDA events but the first two ({card}): plain {step_ms['plain']}, "
+          f"PRD {step_ms['prd']}; prd_matches {prd_matches}")
+
+    # The loop between its hooks never waits for the device.
+    exp.step_fn, exp.step_prd_fn = exp.step_fn.fn, exp.step_prd_fn.fn
+    log = exp.cfg.logging
+    log.i_print = log.i_weights = log.i_testset = log.i_img = log.camera_log = 10**9
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            nerfpp_driver.run_nerfpp_training(exp.cfg, expdir, exp.state.step + TRUCK_TURN_STEPS,
+                                              exp=exp)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    here = os.path.dirname(os.path.abspath(__file__))
+    sites = sorted({f"{os.path.relpath(w.filename, here)}:{w.lineno}" for w in caught
+                    if "synchroniz" in str(w.message)})
+    print(f"  calls that wait for the device in {TRUCK_TURN_STEPS} loop steps (one with PRD): "
+          f"{sites or 'none'}")
+    require(not sites, f"the NeRF++ loop waits for the device at {sites}")
+
+    # The loop against the same step functions on one ready device batch,
+    # in turns: the gap is the host loop's own cost (the draws, the gather,
+    # the copy).
+    ready = nerfpp_driver.nerfpp_sample_batch(exp)
+    i, j = matches.pairs()[0]
+    kps0, kps1, mask = pad_matches(matches.get(i, j), exp.cfg.camera.match_num)
+    ready_prd = dict(ready, **driver.to_device(
+        {"kps0": kps0, "kps1": kps1, "kp_mask": mask,
+         "pair_idx": np.array([i, j], np.int64)}, dev))
+    seed = exp.cfg.logging.seed
+
+    def loop_span():
+        nerfpp_driver.run_nerfpp_training(exp.cfg, expdir, exp.state.step + TRUCK_TURN_STEPS,
+                                          exp=exp)
+
+    def ready_span():
+        for _ in range(TRUCK_TURN_STEPS):
+            it = exp.state.step
+            gen = driver.step_generator(seed, it, dev)
+            if it % TRUCK_TURN_STEPS == 0:
+                exp.state, _ = exp.step_prd_fn(exp.state, ready_prd, gen)
+            else:
+                exp.state, _ = exp.step_fn(exp.state, ready, gen)
+
+    turns = {"loop": [], "ready": []}
+    for _ in range(TRUCK_TURNS):
+        for name, span in (("loop", loop_span), ("ready", ready_span)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            span()
+            torch.cuda.synchronize()
+            turns[name].append((time.perf_counter() - t0) * 1e3 / TRUCK_TURN_STEPS)
+    loop_ms = statistics.median(turns["loop"])
+    ready_ms = statistics.median(turns["ready"])
+    t0 = time.perf_counter()
+    for _ in range(20):
+        nerfpp_driver._host_batch(exp)
+    draw_ms = (time.perf_counter() - t0) * 1e3 / 20
+    rays_per_s = TRUCK_RAYS / loop_ms * 1e3
+    print(f"  spans of {TRUCK_TURN_STEPS} steps (one with PRD), {TRUCK_TURNS} turns each, host "
+          f"clock to a synchronize ({card}): the loop {loop_ms:.3f} ms a step "
+          f"({rays_per_s:.1f} train rays/s), the same steps on one ready batch {ready_ms:.3f} "
+          f"ms; the loop's own cost {loop_ms - ready_ms:.3f} ms a step; the host batch's draws "
+          f"alone (a pixel choice without replacement among {PP_H * PP_W}) {draw_ms:.3f} ms "
+          f"of host time (turns {turns})")
+
+    # One held-out view: render, SSIM, then a checkpoint.
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = nerfpp_driver.render_nerfpp_image(exp, c2w=held.poses[0], K=held.intrinsics[0],
+                                            hw=(held.H, held.W))  # ends in the copies
+    render_s = time.perf_counter() - t0
+    for k, v in out.items():
+        require(bool(np.isfinite(v).all()) and v.shape[:2] == (PP_H, PP_W),
+                f"held-out {k}: shape {v.shape}, finite {np.isfinite(v).all()}")
+    rgb = torch.from_numpy(out["rgb"]).to(dev)
+    target = torch.from_numpy(held.images[0]).to(dev)
+    ssim_ms = per_call_ms(lambda: ssim(rgb, target), calls=10)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path = checkpoint.save_checkpoint(os.path.join(root, "truck_ckpts"), exp.state)
+    save_ms = (time.perf_counter() - t0) * 1e3
+    ckpt_bytes = os.path.getsize(path)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    seconds = time.perf_counter() - started
+    print(f"  one {PP_H}x{PP_W} held-out view: {render_s:.3f} s ({n_held / render_s:.1f} rays/s, "
+          f"{chunks} chunks), SSIM {ssim_ms:.3f} ms by CUDA events; checkpoint {ckpt_bytes} "
+          f"bytes, saved in {save_ms:.1f} ms; peak memory {peak_gib:.3f} GiB; phase "
+          f"{seconds:.1f} s ({card})")
+    record = dict(
+        truck_launches=counts["K2"], truck_cdf_launches=counts["K2 with CDF"],
+        truck_run_s=run_s, truck_step_ms=step_ms, truck_prd_matches=prd_matches,
+        truck_loop_ms=loop_ms, truck_ready_ms=ready_ms, truck_draw_ms=draw_ms,
+        truck_rays_per_s=rays_per_s, truck_render_s=render_s,
+        truck_render_rays_per_s=n_held / render_s, truck_ssim_ms=ssim_ms,
+        truck_ckpt_bytes=ckpt_bytes, truck_ckpt_save_ms=save_ms, truck_peak_gib=peak_gib,
+        truck_phase_s=seconds)
+    return record, exp, out
+
+
+def phase_render_cli(dev, card, root, fern_exp):
+    """Phase 19: the render CLI on the card, on phase 18's NeRF++ experiment
+    and on phase 16's fern experiment, the ``--render_only`` dispatch and
+    the ``i_video`` hook's render."""
+    import io
+
+    from scnerf_tpu_torch.cli import render as rcli
+    from scnerf_tpu_torch.cli import train as tcli
+    from scnerf_tpu_torch.core.imaging import read_png
+    from scnerf_tpu_torch.train import driver
+
+    print("== phase 19: the render CLI on the card")
+    started = time.perf_counter()
+
+    def run(main, argv, what):
+        torch.cuda.synchronize()
+        reset_launches()
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        text = out.getvalue()
+        print(f"  {what} ({seconds:.2f} s):\n    " + "\n    ".join(text.strip().splitlines()))
+        require(rc == 0, f"{what} returned {rc}")
+        evals = [line for line in text.splitlines() if line.startswith("[eval]")]
+        require(len(evals) == 1, f"{what}: no single [eval] line")
+        return text, launch_counts()
+
+    text, counts = run(rcli.main, truck_argv(root) + ["--split", "test", "--max_views", "1"],
+                       "cli.render on the NeRF++ experiment, --split test --max_views 1")
+    require(f"[render] restored step {TRUCK_STEPS} from" in text, "the NeRF++ render did not "
+            f"restore step {TRUCK_STEPS}")
+    chunks = -(-PP_H * PP_W // PP_BATCH)
+    want = 2 * 2 * chunks  # the evaluation's render and the dump's, fg and bg a chunk
+    print(f"  K2 launched {counts['K2']} times: 2 renders x {chunks} chunks x 2 = {want}")
+    require(counts["K2"] == want and counts["K1"] == 0,
+            f"K2 launched {counts['K2']} times (K1 {counts['K1']}), want {want}")
+    out_dir = os.path.join(root, "logs", TRUCK_EXP, "render_test")
+    for name in ("000.png", "000_fg.png", "000_bg.png", "000_depth.png"):
+        png = read_png(os.path.join(out_dir, name))
+        require(png.shape == (PP_H, PP_W, 3), f"{name}: {png.shape}")
+    with open(os.path.join(out_dir, f"{TRUCK_EXP}.txt")) as f:
+        summary = f.read().split()
+    require(summary[0::2] == ["psnr", "ssim"] and all(math.isfinite(float(v))
+                                                      for v in summary[1::2]),
+            f"summary {summary}")
+    k2 = counts["K2"]
+
+    fern_chunks = -(-FERN_H * FERN_W // fern_exp.render_cfg.chunk)
+    k1 = 0
+    for main, extra, what in (
+            (rcli.main, ["--split", "test", "--max_views", "1"],
+             "cli.render on the fern experiment, --split test --max_views 1"),
+            (tcli.main, ["--render_only", "True", "--render_test", "True", "--max_views", "1"],
+             "cli.train --render_only True --render_test True on the fern experiment")):
+        text, counts = run(main, fern_argv(root) + extra, what)
+        require(f"[render] restored step {DRIVER_RESUME_STEPS} from" in text,
+                f"{what} did not restore step {DRIVER_RESUME_STEPS}")
+        require(counts["K1"] == 2 * fern_chunks and counts["K2"] == 0,
+                f"{what}: K1 launched {counts['K1']} times, want 2 x {fern_chunks}")
+        k1 += counts["K1"]
+    png = read_png(os.path.join(root, "logs", "fern_ours", "render_test", "000.png"))
+    require(png.shape == (FERN_H, FERN_W, 3), f"fern render {png.shape}")
+
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    video = driver.render_training_video(fern_exp, fern_exp.state.step,
+                                         out_dir=os.path.join(root, "video"), max_frames=3)
+    video_s = time.perf_counter() - t0
+    counts = launch_counts()
+    require(counts["K1"] == 3 * fern_chunks, f"the video: K1 launched {counts['K1']} times, "
+                                             f"want 3 x {fern_chunks}")
+    require(os.path.exists(video), f"no video at {video}")
+    if video.endswith(".npz"):
+        with np.load(video) as npz:
+            shape = npz["frames"].shape
+        require(shape == (3, FERN_H, FERN_W, 3), f"video frames {shape}")
+    k1 += counts["K1"]
+    seconds = time.perf_counter() - started
+    print(f"  render_training_video: {video} in {video_s:.2f} s; K1 launched {k1} times: "
+          f"2 x 2 test-view renders x {fern_chunks} chunks + 3 frames x {fern_chunks} chunks; "
+          f"phase {seconds:.1f} s ({card})")
+    return dict(render_cli_k2_launches=k2, render_cli_k1_launches=k1, render_cli_video=video,
+                render_cli_phase_s=seconds)
+
+
+def ulp_moved(cache, direction: float):
+    """A copy of a match cache with every keypoint moved by one float32
+    ulp towards ``direction``."""
+    from scnerf_tpu_torch.matching.provider import PairMatches, PrecomputedMatches
+
+    moved = PrecomputedMatches()
+    for i, j in cache.pairs():
+        m = cache.get(i, j)
+        moved.put(i, j, PairMatches(*(np.nextafter(k, np.float32(direction))
+                                      for k in (m.kps0, m.kps1))))
+    return moved
+
+
+def lpips_test_weights(path: str) -> None:
+    """Seeded random VGG16 and head weights in ``metrics/lpips.py``'s file
+    layout (He-scaled convs, so the activations stay O(1)), saved at
+    ``path``: no VGG weights ship with the repository."""
+    from scnerf_tpu_torch.metrics.lpips import _VGG16_PLAN
+
+    rng = np.random.RandomState(SEED + 20)
+    w, cin, ci, tap = {}, 3, 0, 0
+    for item in _VGG16_PLAN:
+        if item == "tap":
+            w[f"lin{tap}_w"] = rng.uniform(0.0, 1.0, cin).astype(np.float32)
+            tap += 1
+        elif item != "M":
+            w[f"conv{ci}_w"] = (rng.randn(3, 3, cin, item) * np.sqrt(2.0 / (9 * cin))).astype(
+                np.float32)
+            w[f"conv{ci}_b"] = (rng.randn(item) * 0.01).astype(np.float32)
+            cin, ci = item, ci + 1
+    w["shift"] = np.array([-0.030, -0.088, -0.188], np.float32)
+    w["scale"] = np.array([0.458, 0.448, 0.450], np.float32)
+    np.savez(path, **w)
+
+
+def phase_truck_cpu_agreement(exp, card_out, root):
+    """Phase 20: phase 18's trained NeRF++ experiment carried to the CPU
+    port: the held-out render, SSIM, PRD evaluation and LPIPS on both
+    devices."""
+    from scnerf_tpu_torch import bridge
+    from scnerf_tpu_torch.metrics import lpips as lpips_module
+    from scnerf_tpu_torch.metrics.ssim import ssim
+    from scnerf_tpu_torch.train import nerfpp_driver
+    from scnerf_tpu_torch.train.step import create_train_state
+
+    print("== phase 20: the NeRF++ evaluation on the card against the CPU port")
+    started = time.perf_counter()
+    cpu = nerfpp_driver.build_nerfpp_experiment(exp.cfg, None, device="cpu")
+    tree = bridge.train_params_to_numpy(exp.state.params)
+    tree["camera"]["config"] = exp.state.params["camera"].config
+    cpu.state = create_train_state(bridge.train_params_to_torch(tree, device="cpu"),
+                                   cpu.optimizer)
+    cpu.pair_list, cpu.match_cache = exp.pair_list, exp.match_cache
+    held = nerfpp_driver._held_out_data(exp)
+    view = dict(c2w=held.poses[0], K=held.intrinsics[0], hw=(held.H, held.W))
+
+    rng = np.random.default_rng(SEED + 20)
+    pick = rng.choice(PP_H * PP_W, TRUCK_CPU_RAYS, replace=False)
+    px = torch.from_numpy((pick % PP_W).astype(np.float32))
+    py = torch.from_numpy((pick // PP_W).astype(np.float32))
+    cpu_maps = nerfpp_driver.render_nerfpp_pixels(cpu, px, py, **view)
+    errs = {}
+    for k in ("rgb", "fg_rgb", "bg_rgb"):
+        err = np.abs(cpu_maps[k].numpy() - card_out[k].reshape(-1, 3)[pick])
+        errs[k] = (float(np.median(err)), float(err.max()))
+
+    target = held.images[0]
+    card_ssim = float(ssim(torch.from_numpy(card_out["rgb"]).to(exp.device),
+                           torch.from_numpy(target).to(exp.device)))
+    cpu_ssim = float(ssim(torch.from_numpy(card_out["rgb"]), torch.from_numpy(target)))
+
+    # PRD at the trained camera; where its distances read float32's
+    # rounding, with the learned intrinsics moved by a pixel or so on both
+    # devices, as phase 17 does. Printed beside it: the CPU's own spread, its
+    # largest change when the keypoints, or the camera's initial intrinsics,
+    # or its initial poses move by one float32 ulp either way (the closest
+    # points of two rays amplify rounding by the inverse square of their
+    # angle).
+    def rel(a, b):
+        return abs(a - b) / max(abs(b), 1e-30)
+
+    def cpu_prd():
+        return nerfpp_driver.evaluate_nerfpp_prd(cpu).get("prd", float("nan"))
+
+    prd = [nerfpp_driver.evaluate_nerfpp_prd(exp).get("prd", float("nan")), cpu_prd()]
+    prd_at = "at the trained camera"
+    if not prd[1] >= 1e-3:
+        for e in (exp, cpu):
+            with torch.no_grad():
+                init = e.state.params["camera"].intrinsics_init
+                init.add_(torch.tensor(TRUCK_PRD_INTRINSICS_MOVE, device=init.device))
+        prd = [nerfpp_driver.evaluate_nerfpp_prd(exp).get("prd", float("nan")), cpu_prd()]
+        prd_at = f"with the intrinsics moved by {TRUCK_PRD_INTRINSICS_MOVE} px"
+    camera = cpu.state.params["camera"]
+    spread = 0.0
+    for direction in (np.inf, -np.inf):
+        cpu.match_cache = ulp_moved(exp.match_cache, direction)
+        spread = max(spread, rel(cpu_prd(), prd[1]))
+        cpu.match_cache = exp.match_cache
+        for name in ("intrinsics_init", "extrinsics_init"):
+            leaf = getattr(camera, name)
+            saved = leaf.clone()
+            with torch.no_grad():
+                leaf.copy_(torch.nextafter(leaf, torch.full_like(leaf, direction)))
+            spread = max(spread, rel(cpu_prd(), prd[1]))
+            with torch.no_grad():
+                leaf.copy_(saved)
+
+    path = os.path.join(root, "lpips_seeded.npz")
+    lpips_test_weights(path)
+    rgb_card = torch.from_numpy(card_out["rgb"]).to(exp.device)
+    target_card = torch.from_numpy(target).to(exp.device)
+    w_card = lpips_module.load_weights(path, device=exp.device)
+    card_lpips = float(lpips_module.lpips(rgb_card, target_card, w_card))
+    lpips_ms = per_call_ms(lambda: lpips_module.lpips(rgb_card, target_card, w_card), calls=3,
+                           repeats=3)
+    cpu_lpips = float(lpips_module.lpips(torch.from_numpy(card_out["rgb"]),
+                                         torch.from_numpy(target),
+                                         lpips_module.load_weights(path, device="cpu")))
+    # The control: LPIPS with cuDNN's TF32 on.
+    fp32 = lpips_module.fp32
+    lpips_module.fp32 = tf32_on
+    try:
+        tf32_lpips = float(lpips_module.lpips(rgb_card, target_card, w_card))
+    finally:
+        lpips_module.fp32 = fp32
+    print("  held-out view through the learned camera at its c2w, "
+          f"{TRUCK_CPU_RAYS} seeded pixels: " + ", ".join(
+              f"{k} median|err|={m:.3e} max|err|={x:.3e}" for k, (m, x) in errs.items()))
+    print(f"  ssim card {card_ssim:.8f} cpu {cpu_ssim:.8f} (|diff| "
+          f"{abs(card_ssim - cpu_ssim):.3e}); evaluate_nerfpp_prd {prd_at} card {prd[0]:.8g} "
+          f"cpu {prd[1]:.8g} (rel {rel(*prd):.3e}; the CPU's own one-ulp spread {spread:.3e})")
+    print(f"  lpips (seeded random VGG16 weights) card {card_lpips:.8g} cpu {cpu_lpips:.8g} "
+          f"(rel {rel(card_lpips, cpu_lpips):.3e}), {lpips_ms:.3f} ms a call on the card by "
+          f"events; control with cuDNN's TF32 on: {tf32_lpips:.8g} (rel "
+          f"{rel(tf32_lpips, cpu_lpips):.3e}, limit 1e-4: "
+          f"{'broken' if rel(tf32_lpips, cpu_lpips) >= 1e-4 else 'kept'}); "
+          f"{time.perf_counter() - started:.1f} s")
+    for k, (med, worst) in errs.items():
+        require(med < 1e-5 and worst < 1e-3, f"held-out {k} median|err|={med:.3e} "
+                                             f"max|err|={worst:.3e}")
+    require(abs(card_ssim - cpu_ssim) < 1e-6, f"ssim card {card_ssim} cpu {cpu_ssim}")
+    require(all(math.isfinite(v) for v in prd), f"evaluate_nerfpp_prd {prd_at}: {prd}")
+    require(rel(*prd) < 1e-5, f"evaluate_nerfpp_prd {prd_at}: card {prd[0]} cpu {prd[1]} (rel "
+                              f"{rel(*prd)})")
+    require(rel(card_lpips, cpu_lpips) < 1e-4, f"lpips card {card_lpips} cpu {cpu_lpips}")
+    return dict(truck_cpu_errs=errs, truck_cpu_ssim_diff=abs(card_ssim - cpu_ssim),
+                truck_cpu_prd=prd, truck_cpu_prd_at=prd_at, truck_cpu_prd_rel=rel(*prd),
+                truck_cpu_prd_spread=spread,
+                truck_lpips=[card_lpips, cpu_lpips], truck_lpips_ms=lpips_ms,
+                truck_lpips_rel=rel(card_lpips, cpu_lpips),
+                truck_lpips_tf32_rel=rel(tf32_lpips, cpu_lpips))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on an NVIDIA card",
@@ -2632,7 +3264,11 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_driver_") as root:
         driver_record, driver_exp, driver_out = phase_driver(dev, card, root)
         driver_record.update(phase_driver_cpu_agreement(driver_exp, driver_out))
-        del driver_exp, driver_out
+        del driver_out
+        truck_record, truck_exp, truck_out = phase_truck_driver(dev, card, root)
+        truck_record.update(phase_render_cli(dev, card, root, driver_exp))
+        truck_record.update(phase_truck_cpu_agreement(truck_exp, truck_out, root))
+        del driver_exp, truck_exp, truck_out
 
     seconds = time.perf_counter() - started
     print(f"chip_smoke: {seconds:.1f} s in all, the kernels' build included")
@@ -2646,6 +3282,7 @@ def main() -> int:
         "train_launches": train_record["train_launches"],
         "train_max_abs_err": train_record["train_max_abs_err"],
         "driver_launches": driver_record["driver_launches"],
+        "render_cli_launches": truck_record["render_cli_k1_launches"],
         **record,
     }, {
         "name": "sample_pdf_nerfpp",
@@ -2657,6 +3294,9 @@ def main() -> int:
         **pp_record,
         "train_launches": pp_train_record["nerfpp_train_launches"],
         "train_cdf_launches": pp_train_record["nerfpp_train_cdf_launches"],
+        "driver_launches": truck_record["truck_launches"],
+        "driver_cdf_launches": truck_record["truck_cdf_launches"],
+        "render_cli_launches": truck_record["render_cli_k2_launches"],
         **pp_train_k2,
     }, {
         "name": "searchsorted",
@@ -2675,7 +3315,7 @@ def main() -> int:
         "launches": field_launches,
         **field_record,
     }], "train": {**train_record, **prd_record, **pp_train_record, **fisheye_record,
-                  **driver_record},
+                  **driver_record, **truck_record},
         "seconds": seconds}))
     print(card)
     print(json.dumps({"ok": True, "device": {

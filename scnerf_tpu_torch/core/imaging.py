@@ -1,11 +1,13 @@
 """Small imaging utilities shared by the driver and its tools.
 
-Port of ``scnerf_tpu/core/imaging.py`` (``to8b``, ``colorize_depth``) plus a
+Port of ``scnerf_tpu/core/imaging.py`` (``to8b``, ``colorize_depth`` with
+matplotlib's "jet" map computed here, so no matplotlib is needed) plus a
 PNG reader and writer on the standard library's ``zlib``, so that reading an
 LLFF scene's ``images_N/`` and writing the driver's images need neither
 ``imageio`` nor PIL. They cover 8-bit gray, gray+alpha, RGB and RGBA,
 non-interlaced, with all five row filters: what LLFF's downscaled PNGs and
-the driver's own images use. Anything else raises and names ``imageio``.
+the driver's own images use. Anything else raises and names ``imageio``;
+:func:`imread` hands other files to ``imageio`` where it is installed.
 """
 from __future__ import annotations
 
@@ -24,17 +26,34 @@ def to8b(x: np.ndarray) -> np.ndarray:
     return (255 * np.clip(np.asarray(x), 0, 1)).astype(np.uint8)
 
 
-def colorize_depth(
-    depth: np.ndarray,
-    mask: np.ndarray | None = None,
-    cmap: str = "jet",
-) -> np.ndarray:
+# matplotlib's "jet" (its segment data), so that the depth images need no
+# matplotlib: (x, value) breakpoints per channel.
+_JET = (
+    ((0.0, 0.0), (0.35, 0.0), (0.66, 1.0), (0.89, 1.0), (1.0, 0.5)),
+    ((0.0, 0.0), (0.125, 0.0), (0.375, 1.0), (0.64, 1.0), (0.91, 0.0), (1.0, 0.0)),
+    ((0.0, 0.5), (0.11, 1.0), (0.34, 1.0), (0.65, 0.0), (1.0, 0.0)),
+)
+_LUT_SIZE = 256
+
+
+def _jet_lut() -> np.ndarray:
+    """The ``(256, 3)`` lookup table matplotlib builds for "jet"."""
+    xind = np.linspace(0, 1, _LUT_SIZE)
+    lut = []
+    for points in _JET:
+        x, y = np.array(points).T
+        ind = np.searchsorted(x, xind)[1:-1]
+        distance = (xind[1:-1] - x[ind - 1]) / (x[ind] - x[ind - 1])
+        inner = distance * (y[ind] - y[ind - 1]) + y[ind - 1]
+        lut.append(np.clip(np.concatenate([[y[0]], inner, [y[-1]]]), 0.0, 1.0))
+    return np.stack(lut, -1)
+
+
+def colorize_depth(depth: np.ndarray, mask: np.ndarray | None = None) -> np.ndarray:
     """Depth map -> RGB visualization (percentile-normalized like the
-    reference's ``colorize``). Needs matplotlib, imported here."""
-    import matplotlib
-
-    matplotlib.use("Agg")
-
+    reference's ``colorize``), float32 ``(..., 3)``: matplotlib's "jet" map
+    (the JAX package's default, and the only one its callers use), computed
+    here as matplotlib computes it."""
     d = np.asarray(depth, np.float64)
     valid = np.isfinite(d) if mask is None else (mask > 0.5) & np.isfinite(d)
     if valid.any():
@@ -44,7 +63,11 @@ def colorize_depth(
         norm = np.clip((d - lo) / (hi - lo), 0, 1)
     else:
         norm = np.zeros_like(d)
-    rgb = matplotlib.colormaps[cmap](norm)[..., :3]
+    # matplotlib's lookup: index int(x * N), with x = 1 in the last entry;
+    # NaN takes its "bad" colour, black.
+    bad = np.isnan(norm)
+    idx = np.minimum((np.where(bad, 0.0, norm) * _LUT_SIZE).astype(int), _LUT_SIZE - 1)
+    rgb = np.where(bad[..., None], 0.0, _jet_lut()[idx])
     if mask is not None:
         rgb = np.where((mask > 0.5)[..., None], rgb, 1.0)
     return rgb.astype(np.float32)
@@ -141,3 +164,17 @@ def read_png(path) -> np.ndarray:
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
     img = _unfilter(raw, h, w * channels, channels)
     return img.reshape(h, w) if channels == 1 else img.reshape(h, w, channels)
+
+
+def imread(path) -> np.ndarray:
+    """An image file as uint8, as ``imageio.imread`` returns it: a PNG by
+    :func:`read_png`, any other format by ``imageio`` (imported here), and
+    without ``imageio`` an ``ImportError`` that names it."""
+    if str(path).lower().endswith(".png"):
+        return read_png(path)
+    try:
+        import imageio.v2 as imageio
+    except ImportError as e:
+        raise ImportError(
+            f"reading {path} needs imageio, which is not installed; PNGs need nothing") from e
+    return np.asarray(imageio.imread(path))

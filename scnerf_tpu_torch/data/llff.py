@@ -21,7 +21,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from scnerf_tpu_torch.core.imaging import read_png
+from scnerf_tpu_torch.core.imaging import imread
 from scnerf_tpu_torch.data.noise import NoiseConfig, inject_pose_noise
 
 _IMG_EXTS = (".jpg", ".jpeg", ".png", ".JPG", ".PNG", ".JPEG")
@@ -32,15 +32,7 @@ def _list_images(d: str) -> list[str]:
 
 
 def _imread(path: str) -> np.ndarray:
-    if path.lower().endswith(".png"):
-        return read_png(path)[..., :3] / 255.0
-    try:
-        import imageio.v2 as imageio
-    except ImportError as e:
-        raise ImportError(
-            f"reading {path} needs imageio, which is not installed; PNGs "
-            "(e.g. the scene's images_{factor}/) need nothing") from e
-    return np.asarray(imageio.imread(path))[..., :3] / 255.0
+    return imread(path)[..., :3] / 255.0
 
 
 def _minify(basedir: str, factor: int) -> str:

@@ -1,10 +1,12 @@
 """NeRF-pipeline training driver.
 
-Port of ``scnerf_tpu/train/driver.py`` (LLFF): config tree in, trained state
-and metrics out. Loads the dataset, builds the camera, the correspondence
-cache and the two train steps (photometric, and photometric + PRD), and runs
-the host loop with periodic logging, checkpoints and the ATE-aligned
-test-view evaluation.
+Port of ``scnerf_tpu/train/driver.py`` (LLFF and blender): config tree in,
+trained state and metrics out. Loads the dataset, builds the camera, the
+correspondence cache and the two train steps (photometric, and photometric
++ PRD), warm-starts from the latest checkpoint or a reference ``.tar``
+(``tools/convert.py``), and runs the host loop with periodic logging,
+checkpoints, the ATE-aligned test-view evaluation (PSNR, SSIM, and LPIPS
+when weights are given) and the ``i_video`` render of the dataset's path.
 
 The loop never waits for the device outside the ``i_print`` steps (which
 read the metrics) and the ``i_weights`` steps (which save a checkpoint).
@@ -13,12 +15,10 @@ alone (:func:`step_generator`), so a resumed run draws what an uninterrupted
 one would. A batch drawn on the host goes to the device as one copy from
 pinned memory (:func:`to_device`); with ``device_sampling`` the batch is
 drawn on the device.
-
-Not in this slice: the blender dataset, the ``i_video`` hook, LPIPS and the
-reference ``.tar`` checkpoint migration; they raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
+import dataclasses
 import os
 from dataclasses import dataclass
 from typing import Any
@@ -41,6 +41,7 @@ from scnerf_tpu_torch.camera.rays import full_image_pixels, pixels_to_rays, rays
 from scnerf_tpu_torch.core.config import ExperimentConfig, resolved_noise_scales
 from scnerf_tpu_torch.core.imaging import to8b, write_png
 from scnerf_tpu_torch.data.batching import PixelPool, RayPool, gather_target, sample_pixels
+from scnerf_tpu_torch.data.blender import load_blender, spherical_render_poses
 from scnerf_tpu_torch.data.llff import load_llff
 from scnerf_tpu_torch.data.noise import NoiseConfig
 from scnerf_tpu_torch.fields.nerf import NeRFConfig, init_nerf_mlp
@@ -57,6 +58,7 @@ from scnerf_tpu_torch.matching.provider import (
     pad_matches,
     sift_available,
 )
+from scnerf_tpu_torch.metrics.lpips import load_weights, lpips, lpips_available
 from scnerf_tpu_torch.metrics.ssim import ssim
 from scnerf_tpu_torch.render.renderer import RenderConfig, render_chunked
 from scnerf_tpu_torch.serve import fp32, fp32_inference
@@ -72,6 +74,8 @@ from scnerf_tpu_torch.train.step import (
     create_train_state,
     make_train_step,
 )
+from scnerf_tpu_torch.tools.convert import load_reference_checkpoint
+from scnerf_tpu_torch.tools.video import array_to_video
 
 
 @dataclass
@@ -127,7 +131,7 @@ def to_device(arrays: dict[str, np.ndarray], device) -> dict[str, torch.Tensor]:
     until the copy has run), and viewed back as each array's dtype and
     shape. On the CPU the tensors share the arrays' memory."""
     device = torch.device(device)
-    arrays = {k: np.ascontiguousarray(v) for k, v in arrays.items()}
+    arrays = {k: np.asarray(v, order="C") for k, v in arrays.items()}
     if device.type == "cpu":
         return {k: torch.from_numpy(v) for k, v in arrays.items()}
     offsets, total = {}, 0
@@ -166,8 +170,13 @@ def _load_dataset(cfg: ExperimentConfig, rng):
         return (d.images, d.noisy_poses, d.gt_poses, d.gt_intrinsic, d.noisy_focal,
                 d.i_train, d.i_test, near, far, d.H, d.W, rp.astype(np.float32))
     if ds.dataset_type == "blender":
-        raise NotImplementedError(
-            "dataset_type blender needs data/blender.py, which a later slice of the port brings")
+        d = load_blender(ds.datadir, half_res=ds.half_res, testskip=ds.testskip,
+                         noise=noise, rng=rng)
+        rgb, alpha = d.images[..., :3], d.images[..., 3:]
+        images = rgb * alpha + (1.0 - alpha) if ds.white_bkgd else rgb
+        i_train, _, i_test = d.i_split
+        return (images.astype(np.float32), d.noisy_poses, d.gt_poses, d.gt_intrinsic,
+                d.noisy_focal, i_train, i_test, 2.0, 6.0, d.H, d.W, spherical_render_poses())
     raise ValueError(f"unknown dataset_type {ds.dataset_type} for NeRF pipeline")
 
 
@@ -257,18 +266,31 @@ def build_experiment(cfg: ExperimentConfig, expdir: str | None = None, *,
     # Warm start / auto-resume (the reference's ft_path + latest-checkpoint
     # resume; disabled by no_reload).
     if not cfg.optim.no_reload:
-        if cfg.optim.ckpt_path.endswith(".tar"):
-            raise NotImplementedError(
-                "restoring a reference .tar checkpoint needs tools/convert.py, which a later "
-                "slice of the port brings")
-        for source in ([cfg.optim.ckpt_path] if cfg.optim.ckpt_path else []) + (
-            [os.path.join(expdir, "ckpts")] if expdir else []
-        ):
-            restored = restore_checkpoint(source, state, optim_meta=optim_knobs(cfg))
-            if restored is not None:
-                state = restored
-                print(f"[resume] restored step {state.step} from {source}")
-                break
+        tar = cfg.optim.ckpt_path
+        if tar.endswith(".tar") and os.path.exists(tar):
+            # A reference checkpoint: its weights converted, a fresh
+            # optimizer state (Adam restarts), its step.
+            ref = load_reference_checkpoint(tar, depth=cfg.model.netdepth, device=device)
+            params["coarse"] = ref["coarse"]
+            if ref["fine"] is not None and params["fine"] is not None:
+                params["fine"] = ref["fine"]
+            for x in named_leaves({"coarse": params["coarse"], "fine": params["fine"]}).values():
+                x.requires_grad_(True)
+            if ref["camera_fields"] and params.get("camera") is not None:
+                params["camera"] = trainable_camera(
+                    dataclasses.replace(params["camera"], **ref["camera_fields"]))
+            state = create_train_state(params, optimizer)
+            state.step = ref["step"]
+            print(f"[resume] converted reference checkpoint {tar} at step {ref['step']}")
+        else:
+            for source in ([tar] if tar else []) + (
+                [os.path.join(expdir, "ckpts")] if expdir else []
+            ):
+                restored = restore_checkpoint(source, state, optim_meta=optim_knobs(cfg))
+                if restored is not None:
+                    state = restored
+                    print(f"[resume] restored step {state.step} from {source}")
+                    break
 
     prd_on = cfg.camera.use_camera and cfg.camera.ray_loss_type == "proj_ray_dist"
     step_fn = make_train_step(model_cfg, render_cfg, train_cfg, curriculum, optimizer)
@@ -387,15 +409,11 @@ def train_loop(
 
     With ``eval_hooks`` the reference's periodic side tasks run too:
     ``i_testset`` test-split metrics (+ PRD evaluation when a match cache
-    exists), ``i_img`` one validation render, ``camera_log`` camera
-    diagnostics. The ``i_video`` hook is not ported yet: ``eval_hooks``
-    needs ``i_video = 0``.
+    exists), ``i_img`` one validation render, ``i_video`` the render path as
+    a video (:func:`render_training_video`), ``camera_log`` camera
+    diagnostics.
     """
     cfg = exp.cfg
-    if eval_hooks and cfg.logging.i_video > 0:
-        raise NotImplementedError(
-            "the i_video hook needs tools/video.py, which a later slice of the port brings; "
-            "set i_video 0")
     n_steps = n_steps if n_steps is not None else cfg.optim.N_iters
     metrics = {}
     timer = StepTimer()
@@ -450,16 +468,41 @@ def _eval_hooks(exp: NerfExperiment, step_now: int) -> None:
         out = render_image(exp, c2w)
         exp.logger.log(step_now, {"val/psnr": _psnr(out["rgb"], exp.images[idx])})
         write_png(os.path.join(exp.logger.expdir, f"val_{step_now:08d}.png"), to8b(out["rgb"]))
+    if (cfg.logging.i_video > 0 and step_now % cfg.logging.i_video == 0
+            and exp.render_poses is not None):
+        render_training_video(exp, step_now)
     if step_now % cfg.logging.camera_log == 0 and camera is not None:
         exp.logger.log(step_now, camera_log_dict(camera, gt_K=exp.gt_intrinsic))
         exp.logger.log_images(step_now, camera_log_images(camera))
 
 
 def render_training_video(exp: NerfExperiment, step: int, out_dir: str | None = None,
-                          max_frames: int | None = None):
-    """The ``i_video`` hook: not ported yet."""
-    raise NotImplementedError(
-        "render_training_video needs tools/video.py, which a later slice of the port brings")
+                          max_frames: int | None = None) -> str | None:
+    """The ``i_video`` hook: render the dataset's spiral or spherical path
+    (its first ``max_frames`` poses) with the current model and camera, and
+    write ``video_{step:08d}.mp4`` and its normalised-disparity companion
+    ``video_{step:08d}_disp.mp4`` into ``out_dir`` (default the logger's
+    directory), each as its ``.npz`` where no video encoder is installed
+    (``tools/video.py``). Returns the rgb video's path as written, None
+    without a path or a directory."""
+    if exp.render_poses is None:
+        return None
+    out_dir = out_dir or (exp.logger.expdir if exp.logger else None)
+    if out_dir is None:
+        return None
+    os.makedirs(out_dir, exist_ok=True)
+    frames, disps = [], []
+    for c2w in exp.render_poses[:max_frames]:
+        out = render_image(exp, np.asarray(c2w))
+        frames.append(out["rgb"])
+        if "disp" in out:
+            disps.append(out["disp"])
+    path = array_to_video(np.stack(frames), os.path.join(out_dir, f"video_{step:08d}.mp4"))
+    if disps:
+        d = np.stack(disps)
+        array_to_video((d / max(float(np.max(d)), 1e-10))[..., None].repeat(3, -1),
+                       os.path.join(out_dir, f"video_{step:08d}_disp.mp4"))
+    return path
 
 
 @torch.no_grad()
@@ -614,10 +657,11 @@ def _psnr(rgb: np.ndarray, target: np.ndarray) -> float:
 
 
 def evaluate_test_views(exp: NerfExperiment, max_views: int | None = None) -> dict:
-    """Mean PSNR and SSIM over the test split (ATE-aligned when a camera is
-    learned), and the number of views. LPIPS is not ported yet; the JAX
-    package reports none either without VGG weights."""
-    psnrs, ssims = [], []
+    """Mean PSNR, SSIM and, when LPIPS weights are given
+    (``metrics/lpips.py``), LPIPS over the test split (ATE-aligned when a
+    camera is learned), and the number of views."""
+    lpips_w = load_weights(device=exp.device) if lpips_available() else None
+    psnrs, ssims, lpipss = [], [], []
     views = exp.i_test[:max_views] if max_views else exp.i_test
     for idx in views:
         idx = int(idx)
@@ -628,7 +672,12 @@ def evaluate_test_views(exp: NerfExperiment, max_views: int | None = None) -> di
         rgb = render_image(exp, c2w)["rgb"]
         target = exp.images[idx]
         psnrs.append(_psnr(rgb, target))
-        ssims.append(float(ssim(torch.from_numpy(rgb).to(exp.device),
-                                torch.from_numpy(target).to(exp.device))))
-    return {"psnr": float(np.mean(psnrs)), "ssim": float(np.mean(ssims)),
-            "n_views": len(psnrs)}
+        rgb_d, target_d = (torch.from_numpy(x).to(exp.device) for x in (rgb, target))
+        ssims.append(float(ssim(rgb_d, target_d)))
+        if lpips_w is not None:
+            lpipss.append(float(lpips(rgb_d, target_d, lpips_w)))
+    res = {"psnr": float(np.mean(psnrs)), "ssim": float(np.mean(ssims)),
+           "n_views": len(psnrs)}
+    if lpipss:
+        res["lpips"] = float(np.mean(lpipss))
+    return res

@@ -17,6 +17,11 @@
   (:func:`to_jax`, :func:`to_port`), the two gradient captures
   (:func:`gradient_tx`, :class:`GradientCapture`) and
   :func:`assert_gradients_close`.
+- Seeded scenes for the driver tests, written by the port's ``write_png``:
+  LLFF (:func:`write_llff_scene`), NeRF++ splits
+  (:func:`write_nerfpp_scene`, with :func:`project_opencv` for matches) and
+  blender (:func:`write_blender_scene`); and a reference ``.tar``
+  checkpoint (:func:`write_reference_tar`).
 """
 from __future__ import annotations
 
@@ -194,3 +199,135 @@ def write_llff_scene(root, n_views=8, H=24, W=32, factor=8, seed=0, focal_full=2
             os.makedirs(os.path.join(root, sub), exist_ok=True)
             write_png(os.path.join(root, sub, f"img_{i:03d}.png"), img)
     return root
+
+
+def look_at_opencv(eye, target=(0.0, 0.0, 0.0), up=(0.0, -1.0, 0.0)):
+    """An OpenCV c2w (x right, y down, z forward) at ``eye`` looking at
+    ``target``."""
+    eye, target, up = (np.asarray(v, np.float64) for v in (eye, target, up))
+    z = target - eye
+    z /= np.linalg.norm(z)
+    x = np.cross(up, z)
+    x /= np.linalg.norm(x)
+    c2w = np.eye(4)
+    c2w[:3, :3] = np.stack([x, np.cross(z, x), z], axis=1)
+    c2w[:3, 3] = eye
+    return c2w
+
+
+def nerfpp_poses(n, seed=0, radius=0.5, arc=0.6):
+    """``n`` OpenCV cameras on an ``arc`` (radians) of a ring of ``radius``
+    (inside the unit sphere) around the origin, looking at it from a little
+    above; neighbours are well within the 30-degree pairing angle."""
+    rng = np.random.RandomState(seed)
+    angles = np.linspace(-arc / 2, arc / 2, n) + rng.uniform(-0.1, 0.1)
+    return np.stack([look_at_opencv([radius * np.cos(a), -0.1, radius * np.sin(a)])
+                     for a in angles])
+
+
+def project_opencv(pts, c2w, K):
+    """Keypoints of world points in an OpenCV camera, in the convention of
+    the NeRF++ matches (the pixel whose centre, ``kp + 0.5``, sees the
+    point)."""
+    cam = (pts - c2w[:3, 3]) @ c2w[:3, :3]
+    pix = cam @ np.asarray(K)[:3, :3].T
+    return (pix[:, :2] / pix[:, 2:3] - 0.5).astype(np.float32), cam[:, 2]
+
+
+def write_nerfpp_scene(root, splits=(("train", 4), ("validation", 1)), H=16, W=16,
+                       focal=14.0, seed=0, k=None, masks=False, min_depth=False):
+    """A seeded NeRF++ scene under ``root``: per split ``rgb/`` (smooth
+    textures as PNGs, by the port's ``write_png``), ``intrinsics/`` (16
+    floats, or 18 with ``k``) and ``pose/`` text files, optionally
+    ``mask/`` and ``min_depth/`` with ``max_depth.txt``. Cameras from
+    :func:`nerfpp_poses`. Returns ``{split: (K, poses)}``."""
+    from scnerf_tpu_torch.core.imaging import to8b, write_png
+
+    rng = np.random.RandomState(seed)
+    K = np.eye(4)
+    K[0, 0] = K[1, 1] = focal
+    K[0, 2], K[1, 2] = W / 2, H / 2
+    out = {}
+    for s, (split, n) in enumerate(splits):
+        d = os.path.join(str(root), split)
+        poses = nerfpp_poses(n, seed=seed + s, radius=0.5 - 0.05 * s)
+        for sub in ["rgb", "intrinsics", "pose"] + (["mask"] if masks else []) + (
+                ["min_depth"] if min_depth else []):
+            os.makedirs(os.path.join(d, sub), exist_ok=True)
+        for i in range(n):
+            write_png(os.path.join(d, "rgb", f"{i:05d}.png"), to8b(smooth_texture(rng, H, W)))
+            vals = list(K.reshape(-1)) + (list(k) if k is not None else [])
+            with open(os.path.join(d, "intrinsics", f"{i:05d}.txt"), "w") as f:
+                f.write(" ".join(repr(float(v)) for v in vals))
+            with open(os.path.join(d, "pose", f"{i:05d}.txt"), "w") as f:
+                f.write(" ".join(repr(float(v)) for v in poses[i].reshape(-1)))
+            if masks:
+                write_png(os.path.join(d, "mask", f"{i:05d}.png"),
+                          (rng.rand(H, W) > 0.3).astype(np.uint8) * 255)
+            if min_depth:
+                write_png(os.path.join(d, "min_depth", f"{i:05d}.png"),
+                          rng.randint(0, 60, (H, W)).astype(np.uint8))
+        if min_depth:
+            with open(os.path.join(d, "max_depth.txt"), "w") as f:
+                f.write("0.8\n")
+        out[split] = (K, poses)
+    return out
+
+
+def write_blender_scene(root, splits=(("train", 3), ("val", 1), ("test", 2)), H=16, W=16,
+                        seed=0):
+    """A seeded blender scene under ``root``: ``transforms_{split}.json``
+    (``camera_angle_x`` 0.69, spherical poses) and RGBA PNGs of smooth
+    textures with a seeded alpha."""
+    import json
+
+    from scnerf_tpu_torch.core.imaging import to8b, write_png
+    from scnerf_tpu_torch.data.blender import pose_spherical
+
+    rng = np.random.RandomState(seed)
+    for split, n in splits:
+        os.makedirs(os.path.join(str(root), split), exist_ok=True)
+        frames = []
+        for i in range(n):
+            rgba = np.concatenate([smooth_texture(rng, H, W), rng.uniform(0.2, 1.0, (H, W, 1))],
+                                  -1)
+            write_png(os.path.join(str(root), split, f"r_{i}.png"), to8b(rgba))
+            pose = pose_spherical(rng.uniform(-180, 180), rng.uniform(-40, -20), 4.0)
+            frames.append({"file_path": f"./{split}/r_{i}", "transform_matrix": pose.tolist()})
+        with open(os.path.join(str(root), f"transforms_{split}.json"), "w") as f:
+            json.dump({"camera_angle_x": 0.69, "frames": frames}, f)
+    return str(root)
+
+
+def write_reference_tar(path, coarse, fine=None, camera=None, step=1234, seed=0):
+    """A checkpoint in the reference's ``.tar`` layout (``global_step``, the
+    coarse and fine ``NeRF`` state dicts, an Adam ``optimizer_state_dict``
+    of dicts, lists and floats, and ``camera_model``), written by
+    ``torch.save``; ``coarse``/``fine`` are state dicts of numpy arrays,
+    ``camera`` a camera state dict."""
+    import torch
+
+    rng = np.random.RandomState(seed)
+
+    def tensors(sd):
+        return {k: torch.from_numpy(np.array(v)) for k, v in sd.items()}
+
+    n_params = len(coarse) + len(fine or {})
+    ckpt = {
+        "global_step": step,
+        "network_fn_state_dict": tensors(coarse),
+        "network_fine_state_dict": tensors(fine) if fine else None,
+        "optimizer_state_dict": {
+            "state": {i: {"step": torch.tensor(float(step)),
+                          "exp_avg": torch.from_numpy(rng.randn(3).astype(np.float32)),
+                          "exp_avg_sq": torch.from_numpy(rng.rand(3).astype(np.float32))}
+                      for i in range(2)},
+            "param_groups": [{"lr": 5e-4, "betas": (0.9, 0.999), "eps": 1e-8,
+                              "weight_decay": 0.0, "amsgrad": False,
+                              "params": list(range(n_params))}],
+        },
+    }
+    if camera is not None:
+        ckpt["camera_model"] = tensors(camera)
+    torch.save(ckpt, str(path))
+    return str(path)

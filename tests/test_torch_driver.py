@@ -18,7 +18,9 @@ ground-truth poses.
   ``evaluate_prd`` and ``evaluate_prd_split`` on injected matches within
   relative 1e-5.
 - ``train_loop`` with every hook, the CLI with a resume, the per-step
-  generator, and the parts of later slices that must raise.
+  generator, and the paths ported after the driver (the render CLI through
+  ``--render_only``, blender, the NeRF++ CLI, the ``.tar`` warm start, the
+  ``i_video`` hook), each run once.
 """
 import dataclasses
 import json
@@ -371,24 +373,62 @@ class TestCli:
 
 
 class TestLaterSlices:
-    @pytest.mark.parametrize("what", ["render_only", "blender", "nerfpp", "tar", "i_video"])
-    def test_raises_not_implemented(self, tmp_path, scene, what):
-        from scnerf_tpu_torch.core.config import load_experiment
+    """The paths that raised before the render CLI, blender, the NeRF++
+    driver, the ``.tar`` migration and the ``i_video`` hook were ported,
+    each run on the CPU."""
 
-        if what in ("render_only", "nerfpp"):
-            argv = ["--config", FERN, "--device", "cpu", "--datadir", scene[0]]
-            argv += ["--render_only", "True"] if what == "render_only" else [
-                "--dataset_type", "nerfpp"]
-            with pytest.raises(NotImplementedError, match="later slice"):
-                tcli.main(argv)
+    @pytest.mark.parametrize("what", ["render_only", "blender", "nerfpp", "tar", "i_video"])
+    def test_later_slice_now_runs(self, tmp_path, scene, what, capsys):
+        from _torch_support import write_blender_scene, write_nerfpp_scene, write_reference_tar
+
+        from scnerf_tpu_torch.core.config import load_experiment
+        from scnerf_tpu_torch.tools.convert import params_to_torch_nerf
+
+        logs = tmp_path / "logs"
+        if what == "render_only":
+            argv = ["--config", FERN, "--device", "cpu", "--datadir", scene[0],
+                    "--basedir", str(logs), "--render_only", "True", "--render_test", "True"]
+            for k, v in SMALL.items():
+                argv += [f"--{k}", str(v)]
+            assert tcli.main(argv + ["--max_views", "1"]) == 0
+            assert "[eval] psnr=" in capsys.readouterr().out
+            assert read_png(logs / "fern_ours" / "render_test" / "000.png").shape == (24, 32, 3)
             return
-        flags = _flags(scene, **{"blender": {"dataset_type": "blender"},
-                                 "tar": {"ft_path": "ref.tar"},
-                                 "i_video": {}}[what])
-        cfg = load_experiment(FERN, flags, warn=_quiet)
-        with pytest.raises(NotImplementedError, match="later slice"):
-            exp = tdriver.build_experiment(cfg, None, device="cpu")
-            tdriver.train_loop(exp, 1, eval_hooks=True)
+        if what == "nerfpp":
+            write_nerfpp_scene(tmp_path / "pp", splits=(("train", 3),), H=16, W=16)
+            argv = ["--config", os.path.join(REPO, "configs", "tanks_and_temples",
+                                             "tat_training_Truck_ours.txt"),
+                    "--device", "cpu", "--datadir", str(tmp_path / "pp"), "--scene", "",
+                    "--basedir", str(logs), "--netdepth", "2", "--netwidth", "16",
+                    "--max_freq_log2", "2", "--max_freq_log2_viewdirs", "2",
+                    "--cascade_samples", "4,4", "--N_rand", "16", "--i_print", "1"]
+            assert tcli.main(argv + ["--steps", "2"]) == 0
+            with open(logs / "tat_training_Truck_ours" / "metrics.jsonl") as f:
+                rows = [json.loads(line) for line in f]
+            assert [r["step"] for r in rows if "loss" in r] == [1, 2]
+            return
+        extra = {"blender": {"dataset_type": "blender",
+                             "datadir": write_blender_scene(tmp_path / "blender"),
+                             "white_bkgd": True, "testskip": 1},
+                 "tar": {"ft_path": str(tmp_path / "ref.tar")},
+                 "i_video": {"i_video": 2, "i_testset": 10**6, "i_img": 10**6,
+                             "camera_log": 10**6, "expname": "vid", "basedir": str(logs)}}[what]
+        cfg = load_experiment(FERN, dict(_flags(scene), **extra), warn=_quiet)
+        if what == "tar":
+            mlp = tdriver.build_experiment(cfg, None, device="cpu").state.params
+            write_reference_tar(extra["ft_path"], params_to_torch_nerf(mlp["coarse"]),
+                                params_to_torch_nerf(mlp["fine"]), step=5)
+        expdir = str(logs / "vid") if what == "i_video" else None
+        exp = tdriver.build_experiment(cfg, expdir, device="cpu")
+        first = exp.state.step
+        assert first == (5 if what == "tar" else 0)
+        if what == "i_video":
+            exp.render_poses = exp.render_poses[:2]
+        state, metrics = tdriver.train_loop(exp, first + 2, eval_hooks=what == "i_video")
+        assert state.step == first + 2 and np.isfinite(float(metrics["loss"]))
+        if what == "i_video":
+            assert sorted(f for f in os.listdir(expdir) if f.startswith("video_"))[0].startswith(
+                "video_00000002.mp4")
 
 
 def test_flags_to_port_config_alike(scene):
