@@ -1,6 +1,6 @@
 """Drive the PyTorch port's NeRF and NeRF++ serving paths, its NeRF and
-NeRF++ train steps, its NeRF and NeRF++ training CLI and its render CLI once
-on an NVIDIA card.
+NeRF++ train steps, its NeRF and NeRF++ training CLI, its render CLI and its
+SuperPoint + SuperGlue matcher once on an NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -227,6 +227,43 @@ the JAX package. Phases, each of which exits non-zero when it fails:
     printed beside it; LPIPS with seeded random VGG16
     weights within relative 1e-4 (and its time on the card); the control,
     LPIPS with cuDNN's TF32 on, printed.
+21. The matcher at the published width: SuperPoint 64-64-128-128 with its
+    256-wide heads, SuperGlue hidden 256, keypoint encoder 32-64-128-256,
+    ``["self", "cross"] * 9`` with 4 heads (13,324,162 parameters), seeded
+    random weights (transformers' initialisation, the detector's
+    convolutions at He's scale so that its scores are not all 1/65) written
+    as ``config.json``, ``preprocessor_config.json`` and
+    ``model.safetensors`` into a temporary hub cache and loaded by
+    ``matcher_from_config`` with ``HF_HUB_CACHE`` pointing there, with
+    ``CameraFlags``' knobs (1,024 keypoints, NMS radius 4, threshold 0.005,
+    20 Sinkhorn rounds) and match threshold 0. Seeded textured pairs with a
+    16-pixel shift at fern's 378x504, Truck's 546x980 and LLFF's 756x1008:
+    ms a pair by the host clock and its split (the host's preprocessing,
+    SuperPoint, the GNN, Sinkhorn with the extraction by CUDA events, the
+    host's post-processing), keypoints an image, mutual matches, the waits
+    for the device a pair (``torch.cuda.set_sync_debug_mode``), peak
+    memory. Then the card against the CPU port on the same pixels: at least
+    99% of each image's keypoints shared, their scores within 1e-5,
+    descriptors within 1e-4, the log assignment between them within
+    relative 1e-5 and the matching scores of the matches both make within
+    1e-5, or within the CPU's own spread under one-ulp moves of the input
+    image where that is larger; and no untied flip: where the two sides'
+    matches differ, an argmax that decides the match must differ too, by no
+    more than the two log assignments differ (random weights leave the
+    scores within rounding of a tie). The share of matched keypoints whose
+    match agrees and the flips are printed. The same with cuDNN's TF32 on,
+    printed as a control.
+22. The training CLI on a seeded fern-shaped scene (phase 16's, no
+    ``matches.npz``) with ``fern_ours.txt`` as it stands, phase 16's
+    overrides, ``--matcher superglue --match_threshold 0.0`` and phase 21's
+    weights in the cache, 20 steps: ``matcher_from_config`` must return the
+    port's matcher on the card, the driver builds ``matches.npz`` over every
+    pair it selects (pairs, seconds and matches a pair printed), at least
+    one pair has matches, both PRD steps get a batch, K1 launched once a
+    step and once a chunk of the three test views' renders; for three
+    pairs, ``matches.npz`` as read back equal to the matcher rerun on the
+    card on the pair's train views, and that rerun held to the CPU port by
+    phase 21's limits.
 
 Each serving path, each of K3's and K4's own paths and each train path run
 with the kernels' launch counts set to 0 just before and read just after. The
@@ -238,8 +275,11 @@ and K2's with their launches on the train paths too (K2's with its shape,
 error, times and bound on the NeRF++ train step's inputs), the train
 metrics (the driver's of phases 16-20 among them, K1's launches in phase 16
 as ``driver_launches`` and in phase 19 as ``render_cli_launches``, K2's in
-phase 18 as ``driver_launches`` and in phase 19 as ``render_cli_launches``)
-and the script's wall time; the line before it is
+phase 18 as ``driver_launches`` and in phase 19 as ``render_cli_launches``;
+K1's in phase 22 as ``superglue_driver_launches``), a ``matching`` record
+(phase 21's pairs with their times, keypoints, waits, peak memory and
+agreement, phase 22's pairs, seconds and matches) and the script's wall
+time; the line before it is
 the card's name and power limit; the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -3195,6 +3235,465 @@ def phase_truck_cpu_agreement(exp, card_out, root):
                 truck_lpips_tf32_rel=rel(tf32_lpips, cpu_lpips))
 
 
+# Phases 21-22: the SuperGlue matcher. The published architecture, as
+# transformers' SuperGlueConfig and SuperPointConfig build it (the layout of
+# magic-leap-community/superglue_outdoor's config.json); CameraFlags' knobs
+# go onto it when the matcher loads it.
+SG_CONFIG = {
+    "keypoint_detector_config": {
+        "model_type": "superpoint", "encoder_hidden_sizes": [64, 64, 128, 128],
+        "decoder_hidden_size": 256, "keypoint_decoder_dim": 65, "descriptor_decoder_dim": 256,
+        "keypoint_threshold": 0.005, "max_keypoints": -1, "nms_radius": 4,
+        "border_removal_distance": 4},
+    "hidden_size": 256, "keypoint_encoder_sizes": [32, 64, 128, 256],
+    "gnn_layers_types": ["self", "cross"] * 9, "num_attention_heads": 4,
+    "sinkhorn_iterations": 100, "matching_threshold": 0.0,
+}
+SG_PARAMETERS = 13_324_162
+SG_PAIRS = (("fern", 378, 504), ("Truck", 546, 980), ("LLFF full", 756, 1008))
+SG_SHIFT = 16  # pixels between a pair's two crops
+SG_WARMUP, SG_TIMED = 2, 5
+SG_COMMIT = "0" * 40  # the snapshot the hub cache's refs/main names
+# Card against the CPU port: shares at least, differences at most
+# (``log_assignment`` relative, entry by entry; ``untied_flips`` a count).
+SG_LIMITS = {"keypoints_shared": 0.99, "score": 1e-5, "descriptor": 1e-4,
+             "log_assignment": 1e-5, "matching_score": 1e-5, "untied_flips": 0}
+SG_SHARES = ("keypoints_shared",)
+SG_EXACT = ("untied_flips",)  # never widened by the CPU's spread
+SG_CPU_PAIRS = 3  # phase 22's pairs held to the CPU port
+SG_DRIVER_STEPS = 20
+
+
+def seeded_superglue_state(config: dict, seed: int) -> dict:
+    """Random weights of ``config`` from ``seed``: transformers'
+    initialisation, but the detector's convolutions at He's fan-in scale (at
+    transformers' 0.02 eight convolutions leave every score at 1/65, and the
+    keypoints are a tie-break)."""
+    from scnerf_tpu_torch.matching.superglue import SuperGlue
+    from scnerf_tpu_torch.matching.superglue_hf import init_weights
+
+    gen = torch.Generator().manual_seed(seed)
+    model = init_weights(SuperGlue(config), gen)
+    with torch.no_grad():
+        for m in model.keypoint_detector.modules():
+            if isinstance(m, torch.nn.Conv2d):
+                m.weight.normal_(0.0, (2.0 / m.weight[0].numel()) ** 0.5, generator=gen)
+    params = sum(p.numel() for p in model.parameters())
+    require(params == SG_PARAMETERS, f"SuperGlue has {params} parameters, want {SG_PARAMETERS}")
+    return model.state_dict()
+
+
+def textured_pair(rng, h: int, w: int):
+    """Two ``(h, w, 3)`` float32 crops of one seeded texture (smooth waves and
+    pixel noise), the second ``SG_SHIFT`` pixels to the right."""
+    base = np.clip(smooth_texture(rng, h, w + SG_SHIFT) + 0.15 * rng.randn(h, w + SG_SHIFT, 3),
+                   0.0, 1.0).astype(np.float32)
+    return base[:, :w], base[:, SG_SHIFT:]
+
+
+def matcher_outputs(model, pixels, timed: bool = False):
+    """SuperPoint, the GNN and Sinkhorn with the extraction on ``pixels``:
+    (the outputs, the same as numpy without the batch axis, and with
+    ``timed`` each stage's ms by CUDA events)."""
+    h, w = pixels.shape[-2:]
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(4)] if timed else []
+    mark = (lambda i: events[i].record()) if timed else (lambda i: None)
+    mark(0)
+    kp, sc, desc, mask = model.detect(pixels)
+    mark(1)
+    pair = model.score(kp, sc, desc, mask, h, w)
+    mark(2)
+    z, matches, mscores = model.assign(pair)
+    mark(3)
+    out = {"keypoints": kp, "scores": sc, "descriptors": desc, "mask": mask,
+           "log_assignment": z, "matches": matches, "matching_scores": mscores}
+    ms = {}
+    if timed:
+        events[3].synchronize()
+        ms = {name: events[i].elapsed_time(events[i + 1])
+              for i, name in enumerate(("superpoint", "gnn", "sinkhorn"))}
+    return out, {k: v.detach().cpu().numpy()[0] for k, v in out.items()}, ms
+
+
+def match_agreement(a: dict, b: dict, height: int, width: int) -> dict:
+    """``a`` against ``b`` (one pair's outputs as numpy), on the keypoints
+    both found (by pixel): the least share of an image's keypoints found by
+    both; the largest score and descriptor differences on them; the largest
+    relative difference of the log assignment between them (Sinkhorn's
+    output without the dustbins) and ``delta``, its largest absolute one;
+    ``matched_agree``, the least share of the keypoints matched on either
+    side whose match (the other image's keypoint by pixel, or none) is the
+    same; ``flips``, the keypoints whose match differs, and
+    ``untied_flips``, those of them that the scores do not explain; and the
+    largest matching-score difference where the match is the same.
+
+    A match is the mutual argmax of a row and a column of the log
+    assignment. A flip is tied when some argmax that decides it (the
+    keypoint's row and the columns of both sides' row argmaxes) differs
+    between ``a`` and ``b``, and ``b``'s scores of the two choices lie
+    within ``2 delta``, the most that two choices can swap by when no entry
+    differs by more than ``delta``. A flip with no differing argmax, or one
+    past that margin, is untied: the extraction did not follow the scores.
+    """
+    index = []
+    for out in (a, b):
+        rows = []
+        for k in range(2):
+            valid = out["mask"][k] > 0
+            pix = np.rint(out["keypoints"][k][valid] * [width, height]).astype(np.int64)
+            rows.append({tuple(p): i for i, p in enumerate(pix)})
+        index.append(rows)
+    res = {"keypoints_shared": 1.0, "score": 0.0, "descriptor": 0.0, "log_assignment": 0.0,
+           "delta": 0.0, "matched_agree": 1.0, "flips": 0, "untied_flips": 0,
+           "matching_score": 0.0,
+           "matches": [int((out["matches"][0] > -1).sum()) for out in (a, b)]}
+    sa, sb = [], []
+    for k in range(2):
+        ia, ib = index[0][k], index[1][k]
+        shared = [p for p in ia if p in ib]
+        res["keypoints_shared"] = min(res["keypoints_shared"],
+                                      len(shared) / max(len(ia), len(ib), 1))
+        sa.append(np.array([ia[p] for p in shared], np.int64))
+        sb.append(np.array([ib[p] for p in shared], np.int64))
+        if shared:
+            res["score"] = max(res["score"], float(np.abs(
+                a["scores"][k][sa[k]] - b["scores"][k][sb[k]]).max()))
+            res["descriptor"] = max(res["descriptor"], float(np.abs(
+                a["descriptors"][k][sa[k]] - b["descriptors"][k][sb[k]]).max()))
+    if not (len(sa[0]) and len(sa[1])):
+        return res
+    za = a["log_assignment"][np.ix_(sa[0], sa[1])].astype(np.float64)
+    zb = b["log_assignment"][np.ix_(sb[0], sb[1])].astype(np.float64)
+    diff = np.abs(za - zb)
+    res["delta"] = float(diff.max())
+    res["log_assignment"] = float((diff / np.maximum(np.abs(zb), 1e-30)).max())
+    tie = 2.0 * res["delta"]
+    for k in range(2):
+        # Rows are image k's keypoints, columns the other image's, in the
+        # order of the shared keypoints.
+        ya, yb = (za, zb) if k == 0 else (za.T, zb.T)
+        ra, rb = ya.argmax(1), yb.argmax(1)
+        ca, cb = ya.argmax(0), yb.argmax(0)
+        at_a = {int(n): m for m, n in enumerate(sa[1 - k])}
+        at_b = {int(n): m for m, n in enumerate(sb[1 - k])}
+        # -1: unmatched; -2: matched to a keypoint the other side lacks.
+        ma = np.array([at_a.get(int(x), -2) if x >= 0 else -1 for x in a["matches"][k][sa[k]]])
+        mb = np.array([at_b.get(int(x), -2) if x >= 0 else -1 for x in b["matches"][k][sb[k]]])
+        matched = (ma != -1) | (mb != -1)
+        same = ma == mb
+        if matched.any():
+            res["matched_agree"] = min(res["matched_agree"], float(same[matched].mean()))
+        both = same & (ma >= 0)
+        if both.any():
+            res["matching_score"] = max(res["matching_score"], float(np.abs(
+                a["matching_scores"][k][sa[k][both]] - b["matching_scores"][k][sb[k][both]]).max()))
+        for p in np.flatnonzero(~same):
+            res["flips"] += 1
+            decided = [(yb[p, ra[p]], yb[p, rb[p]])] if ra[p] != rb[p] else []
+            decided += [(yb[cb[q], q], yb[ca[q], q]) for q in {ra[p], rb[p]} if ca[q] != cb[q]]
+            if not decided or any(abs(x - y) > tie for x, y in decided):
+                res["untied_flips"] += 1
+    return res
+
+
+def over_sg_limits(got: dict, limits: dict) -> list:
+    return [k for k in SG_LIMITS if (got[k] < limits[k] if k in SG_SHARES else got[k] > limits[k])]
+
+
+def sg_limits(spread: dict) -> dict:
+    """:data:`SG_LIMITS`, each widened to the CPU's one-ulp ``spread`` where
+    that is wider, but :data:`SG_EXACT`."""
+    return {k: v if k in SG_EXACT else (min if k in SG_SHARES else max)(v, spread[k])
+            for k, v in SG_LIMITS.items()}
+
+
+def hold_to_cpu(card_np, cpu_model, pixels, rng, what):
+    """The card's outputs against the CPU port's on the same pixels, within
+    :data:`SG_LIMITS` or, where one of them is tighter than float32's
+    conditioning, within the CPU's own spread under one-ulp moves of the
+    input image (:func:`sg_limits`). Returns (agreement, spread, limits,
+    the CPU's outputs)."""
+    from scnerf_tpu_torch.serve import fp32_inference
+
+    host = pixels.cpu()
+    with fp32_inference():
+        _, cpu_np, _ = matcher_outputs(cpu_model, host)
+        moved = torch.from_numpy(one_ulp_moves(rng, host.numpy()))
+        _, moved_np, _ = matcher_outputs(cpu_model, moved)
+    height, width = pixels.shape[-2:]
+    got = match_agreement(card_np, cpu_np, height, width)
+    spread = match_agreement(moved_np, cpu_np, height, width)
+    limits = sg_limits(spread)
+    print(f"  {what}: card vs CPU {fmt_sg(got)}; the CPU's one-ulp spread {fmt_sg(spread)}")
+    bad = over_sg_limits(got, limits)
+    require(not bad, f"{what}: {bad} beyond {limits}")
+    return got, spread, limits, cpu_np
+
+
+def fmt_sg(r: dict) -> str:
+    return (f"keypoints shared {r['keypoints_shared']:.4f}, |d score| {r['score']:.3g}, "
+            f"|d descriptor| {r['descriptor']:.3g}, log assignment rel {r['log_assignment']:.3g} "
+            f"(|d| {r['delta']:.3g}), matched keypoints agreeing {r['matched_agree']:.4f}, "
+            f"flips {r['flips']} (untied {r['untied_flips']}), |d matching score| "
+            f"{r['matching_score']:.3g}, mutual matches {r['matches']}")
+
+
+def write_hub_weights(cache: str, repo_id: str, config: dict, state: dict) -> str:
+    """``config`` and ``state`` as the hub cache holds ``repo_id`` (its
+    ``refs/main`` naming one snapshot): ``config.json``,
+    ``preprocessor_config.json`` with the processor's defaults and
+    ``model.safetensors``, float32 and int64 tensors only (the inverse of the
+    port's ``read_safetensors``: an 8-byte little-endian header length, the
+    JSON header padded to 8 bytes, the raw buffers). Returns the snapshot."""
+    from scnerf_tpu_torch.matching.superglue_hf import PROCESSOR_DEFAULTS
+
+    repo = os.path.join(cache, "models--" + repo_id.replace("/", "--"))
+    snapshot = os.path.join(repo, "snapshots", SG_COMMIT)
+    os.makedirs(snapshot)
+    os.makedirs(os.path.join(repo, "refs"))
+    with open(os.path.join(repo, "refs", "main"), "w") as f:
+        f.write(SG_COMMIT)
+    for name, doc in (("config.json", {"model_type": "superglue", **config}),
+                      ("preprocessor_config.json", PROCESSOR_DEFAULTS)):
+        with open(os.path.join(snapshot, name), "w") as f:
+            json.dump(doc, f)
+    header, blobs = {}, []
+    for name, tensor in state.items():
+        array = tensor.detach().cpu().contiguous().numpy()
+        blob = array.astype(array.dtype.newbyteorder("<")).tobytes()
+        offset = sum(len(b) for b in blobs)
+        header[name] = {"dtype": {torch.float32: "F32", torch.int64: "I64"}[tensor.dtype],
+                        "shape": list(tensor.shape), "data_offsets": [offset, offset + len(blob)]}
+        blobs.append(blob)
+    text = json.dumps(header).encode()
+    text += b" " * (-len(text) % 8)
+    with open(os.path.join(snapshot, "model.safetensors"), "wb") as f:
+        f.write(len(text).to_bytes(8, "little") + text + b"".join(blobs))
+    return snapshot
+
+
+def phase_superglue(dev, card, root):
+    """Phase 21: SuperPoint + SuperGlue at the published width on the card,
+    loaded through ``matcher_from_config`` from a hub cache the phase
+    writes; per pair its time and split, keypoints, waits and peak memory,
+    and the card against the CPU port."""
+    import warnings
+
+    from scnerf_tpu_torch.core.config import CameraFlags
+    from scnerf_tpu_torch.matching.provider import matcher_from_config
+    from scnerf_tpu_torch.matching.superglue_hf import HUB_IDS, HFSuperGlueMatcher
+    from scnerf_tpu_torch.serve import fp32, fp32_inference
+
+    print("== phase 21: SuperPoint + SuperGlue at the published width on the card")
+    started = time.perf_counter()
+    state = seeded_superglue_state(SG_CONFIG, SEED + 21)
+    cam = CameraFlags(matcher="superglue", match_threshold=0.0)
+    snapshot = write_hub_weights(os.environ["HF_HUB_CACHE"], HUB_IDS[cam.superglue_weight],
+                                 SG_CONFIG, state)
+    matcher = matcher_from_config(cam, dev)
+    require(isinstance(matcher, HFSuperGlueMatcher) and matcher.device == dev,
+            f"matcher_from_config returned {type(matcher).__name__} on "
+            f"{getattr(matcher, 'device', None)}")
+    loaded = matcher.model.state_dict()
+    require(all(torch.equal(loaded[k].cpu(), v) for k, v in state.items()),
+            "the matcher's weights are not the ones the phase wrote")
+    model = matcher.model
+    detector = model.keypoint_detector.config
+    require((detector["max_keypoints"], detector["keypoint_threshold"], detector["nms_radius"],
+             model.config["sinkhorn_iterations"]) == (cam.max_keypoints, cam.keypoint_threshold,
+                                                      cam.nms_radius, cam.sinkhorn_iterations),
+            f"the knobs did not reach the model: {detector}, {model.config}")
+    cpu = HFSuperGlueMatcher(pretrained=snapshot, device="cpu", nms_radius=cam.nms_radius,
+                             keypoint_threshold=cam.keypoint_threshold,
+                             max_keypoints=cam.max_keypoints,
+                             sinkhorn_iterations=cam.sinkhorn_iterations, match_threshold=0.0)
+    print(f"  {SG_PARAMETERS:,} parameters of seeded weights written to {snapshot} and loaded by "
+          f"matcher_from_config(matcher=superglue) on {dev}: max_keypoints {cam.max_keypoints}, "
+          f"nms_radius {cam.nms_radius}, keypoint_threshold {cam.keypoint_threshold}, "
+          f"sinkhorn_iterations {cam.sinkhorn_iterations}, match_threshold 0.0")
+
+    rng = np.random.RandomState(SEED + 21)
+    ulp_rng = np.random.default_rng(SEED + 21)
+    pairs = {}
+    for name, h, w in SG_PAIRS:
+        img0, img1 = textured_pair(rng, h, w)
+        for _ in range(SG_WARMUP):
+            matcher.match(img0, img1)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        prep_ms, total_ms, post_ms, stages = [], [], [], []
+        for _ in range(SG_TIMED):
+            t0 = time.perf_counter()
+            pixels = matcher.prepare(img0, img1)
+            t1 = time.perf_counter()
+            with fp32_inference():
+                out, card_np, ms = matcher_outputs(model, pixels, timed=True)
+            t2 = time.perf_counter()
+            found = matcher.postprocess(out, img0.shape, img1.shape)
+            t3 = time.perf_counter()
+            prep_ms.append((t1 - t0) * 1e3)
+            post_ms.append((t3 - t2) * 1e3)
+            total_ms.append((t3 - t0) * 1e3)
+            stages.append(ms)
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                matcher.match(img0, img1)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        here = os.path.dirname(os.path.abspath(__file__))
+        syncs = [f"{os.path.relpath(x.filename, here)}:{x.lineno}" for x in caught
+                 if "synchroniz" in str(x.message)]
+        keypoints = [int(n) for n in card_np["mask"].sum(-1)]
+        split = {k: statistics.median(s[k] for s in stages) for k in stages[0]}
+        rec = {"ms": statistics.median(total_ms), "host_prep_ms": statistics.median(prep_ms),
+               **{f"{k}_ms": v for k, v in split.items()},
+               "host_post_ms": statistics.median(post_ms), "keypoints": keypoints,
+               "syncs": len(syncs), "peak_gib": peak_gib, "matches": int(found.kps0.shape[0])}
+        print(f"  {name} pair {h}x{w} (shift {SG_SHIFT} px), median of {SG_TIMED} ({card}): "
+              f"{rec['ms']:.2f} ms a pair by the host clock: preprocessing "
+              f"{rec['host_prep_ms']:.2f} "
+              f"(host), SuperPoint {split['superpoint']:.2f}, GNN {split['gnn']:.2f}, Sinkhorn and "
+              f"extraction {split['sinkhorn']:.2f} (CUDA events), post-processing "
+              f"{rec['host_post_ms']:.2f} (host); keypoints {keypoints}; {rec['matches']} mutual "
+              f"matches at 0.0; {len(syncs)} waits for the device a pair ({sorted(set(syncs))}); "
+              f"peak memory {peak_gib:.3f} GiB")
+        require(min(keypoints) > 0 and rec["matches"] > 0, f"{name}: keypoints {keypoints}, "
+                                                          f"matches {rec['matches']}")
+        got, spread, limits, cpu_np = hold_to_cpu(card_np, cpu.model, pixels, ulp_rng, name)
+        with fp32(), torch.inference_mode():
+            torch.backends.cudnn.allow_tf32 = True  # fp32() restores it
+            _, tf32_np, _ = matcher_outputs(model, pixels)
+        tf32 = match_agreement(tf32_np, cpu_np, *pixels.shape[-2:])
+        broken = over_sg_limits(tf32, limits)
+        print(f"  {name} control, cuDNN's TF32 on: card vs CPU {fmt_sg(tf32)}; breaks "
+              f"{broken or 'no limit'}")
+        pairs[name] = dict(rec, agreement=got, cpu_spread=spread, limits=limits,
+                           tf32_control=tf32, tf32_breaks=broken, sync_sites=sorted(set(syncs)))
+    seconds = time.perf_counter() - started
+    print(f"  phase 21: {seconds:.1f} s")
+    return {"pairs": pairs, "phase21_s": seconds}, cpu
+
+
+def phase_superglue_driver(dev, card, root, cpu):
+    """Phase 22: the training CLI on a seeded fern-shaped scene with no
+    ``matches.npz`` and ``matcher superglue``: the driver builds its match
+    cache with phase 21's weights on the card, and PRD trains on it."""
+    import io
+
+    from scnerf_tpu_torch.cli import train as cli
+    from scnerf_tpu_torch.matching.provider import PrecomputedMatches
+    from scnerf_tpu_torch.matching.superglue_hf import HFSuperGlueMatcher
+    from scnerf_tpu_torch.serve import fp32_inference
+    from scnerf_tpu_torch.train import driver
+
+    print("== phase 22: PRD training with matches the card made (fern-shaped scene, "
+          "matcher superglue)")
+    started = time.perf_counter()
+    scene = write_fern_scene(os.path.join(root, "fern"))
+    argv = ["--config", FERN_CONFIG, "--datadir", scene, "--basedir", os.path.join(root, "logs"),
+            "--add_ie", "0", "--add_od", "0", "--add_prd", "0", "--i_print", "10",
+            "--matcher", "superglue", "--match_threshold", "0.0",
+            "--steps", str(SG_DRIVER_STEPS)]
+    seen = {"prd": []}
+    originals = (driver.matcher_from_config, driver.build_match_cache, driver.sample_prd_batch,
+                 driver.build_experiment)
+
+    def selecting(cam, device="cuda"):
+        seen["matcher"] = originals[0](cam, device)
+        return seen["matcher"]
+
+    def building(images, pairs, provider, path=None):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cache = originals[1](images, pairs, provider, path)
+        seen["cache_s"], seen["pairs"], seen["images"] = time.perf_counter() - t0, pairs, images
+        return cache
+
+    def drawing(exp):
+        batch = originals[2](exp)
+        seen["prd"].append(batch is not None)
+        return batch
+
+    def capturing(*args, **kwargs):
+        seen["exp"] = originals[3](*args, **kwargs)
+        return seen["exp"]
+
+    (driver.matcher_from_config, driver.build_match_cache, driver.sample_prd_batch,
+     driver.build_experiment) = selecting, building, drawing, capturing
+    try:
+        torch.cuda.synchronize()
+        reset_launches()
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(argv)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = launch_counts()["K1"]
+    finally:
+        (driver.matcher_from_config, driver.build_match_cache, driver.sample_prd_batch,
+         driver.build_experiment) = originals
+    print("  " + "\n  ".join(out.getvalue().strip().splitlines()))
+    require(rc == 0, f"cli.train.main returned {rc}")
+    matcher, exp = seen.get("matcher"), seen["exp"]
+    require(isinstance(matcher, HFSuperGlueMatcher) and matcher.device.type == dev.type,
+            f"the driver's matcher is {type(matcher).__name__} on "
+            f"{getattr(matcher, 'device', None)}, not the port's SuperGlue on the card")
+    path = os.path.join(exp.logger.expdir, "matches.npz")
+    require(os.path.exists(path) and "cache_s" in seen, "the driver wrote no matches.npz")
+    cache = PrecomputedMatches(path)
+    counts = [cache.get(i, j).kps0.shape[0] for i, j in cache.pairs()]
+    require(len(counts) == len(seen["pairs"]) == len(exp.pair_list) and max(counts) > 0,
+            f"matches.npz: {len(counts)} pairs of {len(exp.pair_list)}, counts {counts}")
+    want_prd = -(-SG_DRIVER_STEPS // 10)
+    require(seen["prd"] == [True] * want_prd,
+            f"sample_prd_batch on the PRD steps: {seen['prd']}, want {want_prd} batches")
+    chunks = -(-exp.H * exp.W // exp.render_cfg.chunk)
+    want = SG_DRIVER_STEPS + 3 * chunks
+    print(f"  match cache: {len(counts)} pairs in {seen['cache_s']:.2f} s "
+          f"({seen['cache_s'] / len(counts) * 1e3:.1f} ms a pair), matches a pair min "
+          f"{min(counts)} / median {statistics.median(counts)} / max {max(counts)}; PRD batches "
+          f"on {len(seen['prd'])} PRD steps; the run {run_s:.2f} s; K1 launched {launches} times: "
+          f"{SG_DRIVER_STEPS} train steps + 3 test views x {chunks} chunks = {want} ({card})")
+    require(launches == want, f"K1 launched {launches} times, want {want}")
+
+    # matches.npz as read back against the matcher rerun on the card on the
+    # pair's train views, exactly; that rerun's raw outputs against the CPU
+    # port's by phase 21's limits.
+    images = seen["images"]
+    require(np.array_equal(images, exp.images[exp.i_train]),
+            "the driver matched other images than the train views")
+    held = []
+    for i, j in cache.pairs()[:SG_CPU_PAIRS]:
+        pixels = matcher.prepare(images[i], images[j])
+        with fp32_inference():
+            out, card_np, _ = matcher_outputs(matcher.model, pixels)
+        a, rerun = cache.get(i, j), matcher.postprocess(out, images[i].shape, images[j].shape)
+        require(all(np.array_equal(getattr(a, f), getattr(rerun, f))
+                    for f in ("kps0", "kps1", "confidence")),
+                f"matches.npz pair ({i}, {j}) differs from the card's matcher on train views "
+                f"{i} and {j}: {a} against {rerun}")
+        got, _, _, _ = hold_to_cpu(card_np, cpu.model, pixels,
+                                   np.random.default_rng(SEED + 22 + i), f"pair ({i}, {j})")
+        b = cpu.match(images[i], images[j])
+        same = len({tuple(r) for r in np.hstack([a.kps0, a.kps1])}
+                   & {tuple(r) for r in np.hstack([b.kps0, b.kps1])})
+        print(f"    pair ({i}, {j}) in matches.npz: {a.kps0.shape[0]} matches, equal to the card's "
+              f"rerun; the CPU port's {b.kps0.shape[0]}, {same} the same")
+        held.append(dict(got, pair=[i, j], cache_matches=int(a.kps0.shape[0]),
+                         cpu_matches=int(b.kps0.shape[0]), same_matches=same))
+    seconds = time.perf_counter() - started
+    print(f"  phase 22: {seconds:.1f} s")
+    return {"driver_pairs": len(counts), "driver_cache_s": seen["cache_s"],
+            "driver_matches_min": min(counts), "driver_matches_median": statistics.median(counts),
+            "driver_matches_max": max(counts), "driver_prd_batches": len(seen["prd"]),
+            "driver_launches": launches, "driver_held_to_cpu": held, "phase22_s": seconds}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on an NVIDIA card",
@@ -3270,6 +3769,18 @@ def main() -> int:
         truck_record.update(phase_truck_cpu_agreement(truck_exp, truck_out, root))
         del driver_exp, truck_exp, truck_out
 
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_superglue_") as root:
+        hub = os.environ.get("HF_HUB_CACHE")
+        os.environ["HF_HUB_CACHE"] = os.path.join(root, "hub")  # phase 21 writes the weights
+        try:
+            match_record, cpu_matcher = phase_superglue(dev, card, root)
+            match_record.update(phase_superglue_driver(dev, card, root, cpu_matcher))
+        finally:
+            if hub is None:
+                os.environ.pop("HF_HUB_CACHE")
+            else:
+                os.environ["HF_HUB_CACHE"] = hub
+
     seconds = time.perf_counter() - started
     print(f"chip_smoke: {seconds:.1f} s in all, the kernels' build included")
     print(json.dumps({"kernels": [{
@@ -3282,6 +3793,7 @@ def main() -> int:
         "train_launches": train_record["train_launches"],
         "train_max_abs_err": train_record["train_max_abs_err"],
         "driver_launches": driver_record["driver_launches"],
+        "superglue_driver_launches": match_record["driver_launches"],
         "render_cli_launches": truck_record["render_cli_k1_launches"],
         **record,
     }, {
@@ -3316,6 +3828,7 @@ def main() -> int:
         **field_record,
     }], "train": {**train_record, **prd_record, **pp_train_record, **fisheye_record,
                   **driver_record, **truck_record},
+        "matching": match_record,
         "seconds": seconds}))
     print(card)
     print(json.dumps({"ok": True, "device": {

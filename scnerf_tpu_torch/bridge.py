@@ -18,6 +18,8 @@ np.asarray, tree)``), so this module imports neither ``jax`` nor
   "camera"}``) becomes the port's with the trainable leaves requiring grad
   (:func:`train_params_to_torch`), and goes back by JAX leaf name
   (:func:`train_params_to_numpy`).
+- SuperGlue: the JAX package's ``transformers`` state dict, by the same
+  names (:func:`superglue_state_from_numpy`).
 """
 from __future__ import annotations
 
@@ -136,3 +138,18 @@ def train_params_to_numpy(params: dict) -> dict:
     ``jax_camera.replace(**leaves)``)."""
     return {key: (camera_to_numpy(sub) if isinstance(sub, Camera) else tree_to_numpy(sub))
             for key, sub in params.items()}
+
+
+def superglue_state_from_numpy(arrays: dict, device: torch.device | str = "cuda") -> dict:
+    """The JAX package's SuperGlue parameters (its ``transformers`` model's
+    ``state_dict()`` as numpy arrays) -> a state dict of the port's
+    :class:`~scnerf_tpu_torch.matching.superglue.SuperGlue`, which names
+    them alike; each array keeps its dtype (the batch norms' counters are
+    int64)."""
+    out = {}
+    for name, array in arrays.items():
+        array = np.asarray(array)
+        if array.dtype.kind not in "fiub":
+            raise TypeError(f"{name}: {array.dtype} is not a parameter's dtype")
+        out[name] = torch.from_numpy(np.array(array)).to(device)
+    return out

@@ -241,19 +241,6 @@ def ray_d_noise_at(camera: Camera, px, py) -> torch.Tensor:
 # Logging (the reference's CameraModel.log_noises, camera_model.py:54-117)
 # --------------------------------------------------------------------------
 
-def radial_distortion_field(k: np.ndarray, H: int, W: int) -> np.ndarray:
-    """Per-pixel displacement magnitude of the radial model about the image
-    centre: an (H, W) float field (the JAX package's
-    ``tools/visualize.py:radial_distortion_field``)."""
-    cx, cy = W / 2, H / 2
-    py, px = np.mgrid[0:H, 0:W].astype(np.float64)
-    rx = (px - cx) / cx
-    ry = (py - cy) / cy
-    dx = (px - cx) * (rx**2 * k[0] + rx**4 * k[1])
-    dy = (py - cy) * (ry**2 * k[0] + ry**4 * k[1])
-    return np.sqrt(dx**2 + dy**2)
-
-
 def camera_log_images(camera: Camera) -> dict:
     """Image summaries of the reference's ``log_noises`` dashboard: the
     rayo/rayd noise grids as min-max-normalized RGB and, for distortion
@@ -272,6 +259,8 @@ def camera_log_images(camera: Camera) -> dict:
         "camera/ray_d_noise": normalize(d_grid.cpu().numpy()),
     }
     if camera.config.use_distortion:
+        from scnerf_tpu_torch.tools.visualize import radial_distortion_field
+
         k = get_distortion(camera).detach().cpu().numpy()
         field = normalize(radial_distortion_field(
             k, max(camera.config.H, 2), max(camera.config.W, 2)))

@@ -7,6 +7,14 @@ error in both directions with positive ray parameters, then compute the
 clamped PRD with the *evaluated* camera; report the NaN-skipped mean over
 pairs. A host loop over pairs on ``losses/prd.py``; it reads each pair's
 value back from the device.
+
+The distances are computed in float64 from float32 inputs and rays, where
+the reference stays in float32. In float32 the closest points of two
+near-parallel rays cancel (``r01**2 - 1``): a one-ulp change of the rays
+moves a Truck-shaped scene's mean by 3e-5 to 6e-5 relative, so two devices
+that round the rays differently disagree by that much, and the mean lies
+6e-5 from its float64 value. In float64 the same change moves it by under
+1e-6 (``scripts/torch_prd_eval_precision.py``).
 """
 from __future__ import annotations
 
@@ -71,8 +79,11 @@ def prd_evaluation(
     Returns:
       NaN-skipped mean PRD (float); NaN when no pair produced a value.
     """
-    def tensor(x):
-        return torch.as_tensor(x, dtype=torch.float32, device=device)
+    def tensor(x):  # a float32 value, held in float64
+        return torch.as_tensor(x, dtype=torch.float32, device=device).double()
+
+    def rays(fn, kps, i):  # cast at the rays' float32 keypoints
+        return tuple(r.double() for r in fn(kps.float(), i))
 
     K_eval, E_eval = tensor(K_eval), tensor(E_eval)
     if mode in ("val", "test"):
@@ -91,14 +102,14 @@ def prd_evaluation(
 
         if mode in ("val", "test"):
             keep = filter_matches_with_gt(
-                kps0, kps1, rays_gt(kps0, i), rays_gt(kps1, j), gt_K,
+                kps0, kps1, rays(rays_gt, kps0, i), rays(rays_gt, kps1, j), gt_K,
                 gt_E[[i, j]], method,
             )
             mask = mask & keep
 
         loss, n = prd_loss(
-            kps0, kps1, rays_eval(kps0, i), rays_eval(kps1, j), K_eval, E_eval[[i, j]],
-            mask=mask, threshold=threshold, method=method, mode=mode,
+            kps0, kps1, rays(rays_eval, kps0, i), rays(rays_eval, kps1, j), K_eval,
+            E_eval[[i, j]], mask=mask, threshold=threshold, method=method, mode=mode,
         )
         loss = float(loss)
         if np.isfinite(loss) and float(n) > 0:

@@ -8,10 +8,15 @@ step.
   package's layout (``kps0_{i}_{j}``, ``kps1_{i}_{j}``, ``conf_{i}_{j}``).
 - :class:`SIFTMatcher`: OpenCV SIFT + ratio test, when ``cv2`` is
   installed (imported where it is used).
+- :class:`~scnerf_tpu_torch.matching.superglue_hf.HFSuperGlueMatcher`: the
+  port's own SuperPoint + SuperGlue on weights in the Hugging Face layout,
+  found offline (a local directory or the hub cache).
+- :class:`SuperGlueMatcher`: the reference's ``thirdparty/superglue``
+  package (``models.matching``), where someone put it on ``sys.path``.
 
-SuperGlue is not ported yet: :func:`matcher_from_config` warns and falls
-back to the cache for ``matcher = superglue``. All providers return matches
-in the common padded form via :func:`pad_matches`.
+:func:`matcher_from_config` picks among them from the config's ``matcher``
+key; None tells the caller to fall back to the precomputed cache. All
+providers return matches in the common padded form via :func:`pad_matches`.
 """
 from __future__ import annotations
 
@@ -20,6 +25,7 @@ from dataclasses import dataclass
 from typing import Protocol
 
 import numpy as np
+import torch
 
 
 @dataclass
@@ -150,20 +156,40 @@ class SIFTMatcher:
         )
 
 
-def matcher_from_config(cam_cfg):
+def matcher_from_config(cam_cfg, device: torch.device | str = "cuda"):
     """Select the configured live matcher (the reference picks SuperGlue or
     SIFT at startup, ``run_nerf.py:87-90``). ``cam_cfg`` is a
-    ``CameraFlags``-shaped object (``matcher`` + the superglue knobs).
-    Returns None when the requested matcher is unavailable (the caller falls
-    back to the precomputed-match cache): SIFT without ``cv2``, and
-    SuperGlue, which the port does not carry yet; it warns for that one, as
-    the JAX package does when it finds no SuperGlue weights."""
+    ``CameraFlags``-shaped object (``matcher`` + the superglue knobs); the
+    SuperGlue matchers run on ``device``.
+    Returns None when the requested matcher is unavailable in this
+    environment (the caller falls back to the precomputed-match cache): SIFT
+    without ``cv2``; SuperGlue without local weights in the Hugging Face
+    layout or the reference's ``thirdparty`` package, with a warning."""
     if cam_cfg.matcher == "superglue":
-        from warnings import warn
+        from scnerf_tpu_torch.matching.superglue_hf import (
+            HFSuperGlueMatcher,
+            hf_superglue_available,
+        )
 
-        warn("[matching] matcher=superglue is not ported yet; falling back "
-             "to the precomputed-match cache")
-        return None
+        if hf_superglue_available(cam_cfg.superglue_weight):
+            return HFSuperGlueMatcher(
+                weights=cam_cfg.superglue_weight,
+                nms_radius=cam_cfg.nms_radius,
+                keypoint_threshold=cam_cfg.keypoint_threshold,
+                max_keypoints=cam_cfg.max_keypoints,
+                sinkhorn_iterations=cam_cfg.sinkhorn_iterations,
+                match_threshold=cam_cfg.match_threshold,
+                device=device,
+            )
+        try:  # the reference's thirdparty submodule, if someone vendored it
+            return SuperGlueMatcher(weights=cam_cfg.superglue_weight, device=device)
+        except (ImportError, OSError):  # no package, or no weights for it
+            from warnings import warn
+
+            warn("[matching] matcher=superglue but no local SuperGlue "
+                 "weights (HF cache or thirdparty submodule); falling back "
+                 "to the precomputed-match cache")
+            return None
     if cam_cfg.matcher == "sift" and sift_available():
         return SIFTMatcher()
     return None
@@ -176,6 +202,64 @@ def sift_available() -> bool:
         return hasattr(__import__("cv2"), "SIFT_create")
     except Exception:
         return False
+
+
+class SuperGlueMatcher:
+    """Optional offline SuperGlue (torch). Requires the pretrained network
+    package (the reference's ``thirdparty/superglue`` submodule) on
+    ``sys.path`` plus weights; otherwise raises ImportError at construction.
+    Config keys mirror ``init_superglue`` (``reprojection.py:54-70``). Runs
+    at the images' own resolution, in full float32."""
+
+    def __init__(
+        self,
+        weights: str = "outdoor",
+        nms_radius: int = 4,
+        keypoint_threshold: float = 0.005,
+        max_keypoints: int = 1024,
+        sinkhorn_iterations: int = 20,
+        match_threshold: float = 0.2,
+        device: torch.device | str = "cuda",
+    ):
+        from models.matching import Matching  # SuperGluePretrainedNetwork
+
+        self.device = device
+        self._matching = (
+            Matching(
+                {
+                    "superpoint": {
+                        "nms_radius": nms_radius,
+                        "keypoint_threshold": keypoint_threshold,
+                        "max_keypoints": max_keypoints,
+                    },
+                    "superglue": {
+                        "weights": weights,
+                        "sinkhorn_iterations": sinkhorn_iterations,
+                        "match_threshold": match_threshold,
+                    },
+                }
+            )
+            .eval()
+            .to(device)
+        )
+
+    def match(self, img0: np.ndarray, img1: np.ndarray) -> PairMatches:
+        from scnerf_tpu_torch.serve import fp32_inference
+
+        g0 = torch.from_numpy(rgb_to_gray(img0))[None, None].to(self.device)
+        g1 = torch.from_numpy(rgb_to_gray(img1))[None, None].to(self.device)
+        with fp32_inference():
+            pred = self._matching({"image0": g0, "image1": g1})
+        kps0 = pred["keypoints0"][0].cpu().numpy()
+        kps1 = pred["keypoints1"][0].cpu().numpy()
+        matches = pred["matches0"][0].cpu().numpy()
+        conf = pred["matching_scores0"][0].cpu().numpy()
+        valid = matches > -1
+        return PairMatches(
+            kps0[valid].astype(np.float32),
+            kps1[matches[valid]].astype(np.float32),
+            conf[valid].astype(np.float32),
+        )
 
 
 def build_match_cache(

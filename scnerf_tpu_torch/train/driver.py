@@ -306,7 +306,7 @@ def build_experiment(cfg: ExperimentConfig, expdir: str | None = None, *,
         if cache_path and os.path.exists(cache_path):
             match_cache = PrecomputedMatches(cache_path)
         elif len(pair_list):
-            m = matcher_from_config(cfg.camera)  # sift / None
+            m = matcher_from_config(cfg.camera, device)  # SuperGlue, SIFT or None
             match_cache = (
                 build_match_cache(images[i_train], pair_list, m, cache_path)
                 if m is not None else PrecomputedMatches(cache_path)

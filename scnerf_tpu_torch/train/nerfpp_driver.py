@@ -221,7 +221,7 @@ def build_nerfpp_experiment(cfg: ExperimentConfig, expdir: str | None = None, *,
         if cache_path and os.path.exists(cache_path):
             match_cache = PrecomputedMatches(cache_path)
         elif train.images is not None:
-            m = matcher_from_config(cfg.camera)  # sift / None
+            m = matcher_from_config(cfg.camera, device)  # SuperGlue, SIFT or None
             match_cache = (build_match_cache(train.images, pair_list, m, cache_path)
                            if m is not None else PrecomputedMatches(cache_path))
         else:

@@ -12,6 +12,8 @@
   seconds alone.
 - :func:`interpret`, the one way these modules run a JAX function that
   reaches a Pallas TPU kernel.
+- :func:`jax_prd_distances_in_float64`, the JAX PRD evaluation with its
+  distances in float64, as the port computes them.
 - The train-step parity helpers shared by ``test_torch_train_step.py`` and
   ``test_torch_nerfpp_train.py``: batches as JAX arrays and as tensors
   (:func:`to_jax`, :func:`to_port`), the two gradient captures
@@ -78,6 +80,34 @@ def interpret(fn):
 
     with pltpu.force_tpu_interpret_mode():
         return jax.block_until_ready(jax.jit(fn)())
+
+
+def jax_prd_distances_in_float64(monkeypatch):
+    """Make ``scnerf_tpu.losses.prd_eval.prd_evaluation`` compute its
+    distances in float64 from its float32 rays and inputs, as the port's
+    ``prd_evaluation`` does: its
+    ``prd_loss`` and ``filter_matches_with_gt`` take their array arguments
+    cast to float64 and run under ``jax.enable_x64``. The JAX package is
+    not edited; the patch ends with the test."""
+    import jax
+    import jax.numpy as jnp
+
+    from scnerf_tpu.losses import prd_eval
+
+    def in_float64(fn):
+        def cast(x):
+            if isinstance(x, tuple):
+                return tuple(cast(v) for v in x)
+            return jnp.asarray(x, jnp.float64) if getattr(x, "dtype", None) == np.float32 else x
+
+        def run(*args, **kwargs):
+            with jax.enable_x64(True):
+                return fn(*(cast(a) for a in args), **{k: cast(v) for k, v in kwargs.items()})
+        return run
+
+    monkeypatch.setattr(prd_eval, "prd_loss", in_float64(prd_eval.prd_loss))
+    monkeypatch.setattr(prd_eval, "filter_matches_with_gt",
+                        in_float64(prd_eval.filter_matches_with_gt))
 
 
 def to_jax(batch):

@@ -104,6 +104,21 @@ class TestCameraDecoders:
         _close(tmodel.get_extrinsic(tcam, 1), jmodel.get_extrinsic(jcam, 1))
         _close(tmodel.get_distortion(tcam), jmodel.get_distortion(jcam))
 
+    @pytest.mark.parametrize("cfg", [dict(use_distortion=True),
+                                     dict(use_distortion=True, tied_ray_noise=True), {}])
+    def test_camera_log_images(self, cfg):
+        """The dashboard's images: the noise grids and, on a distortion
+        camera, the radial field through ``tools/visualize.py``. Within
+        ATOL: the field is normalised in float32 from ``k``, which the two
+        packages decode with the camera's rounding."""
+        jcam, tcam = _cameras(4, **cfg)
+        got, want = tmodel.camera_log_images(tcam), jmodel.camera_log_images(jcam)
+        assert set(got) == set(want)
+        assert ("camera/radial_field" in got) == cfg.get("use_distortion", False)
+        for name in want:
+            assert got[name].shape == np.shape(want[name]) and got[name].dtype == np.float32
+            _close(got[name], want[name])
+
     def test_noise_grid_interpolation(self):
         rng = np.random.default_rng(2)
         grid = rng.normal(size=(6, 8, 3)).astype(np.float32)

@@ -35,7 +35,7 @@ import jax.numpy as jnp  # noqa: E402
 import torch  # noqa: E402
 
 from _torch_support import hang_watchdog  # noqa: E402,F401
-from _torch_support import write_llff_scene  # noqa: E402
+from _torch_support import jax_prd_distances_in_float64, write_llff_scene  # noqa: E402
 from scnerf_tpu.core.config import experiment_from_flags as j_flags  # noqa: E402
 from scnerf_tpu.matching import provider as jprovider  # noqa: E402
 from scnerf_tpu.train import driver as jdriver  # noqa: E402
@@ -285,7 +285,10 @@ class TestEvaluation:
         assert abs(got["psnr"] - want["psnr"]) < 1e-3
         assert abs(got["ssim"] - want["ssim"]) < 1e-5
 
-    def test_evaluate_prd_alike(self, pair):
+    def test_evaluate_prd_alike(self, pair, monkeypatch):
+        # The port's driver computes the distances in float64; so does the
+        # JAX side here, from its own float32 rays.
+        jax_prd_distances_in_float64(monkeypatch)
         j, t = pair
         want, got = jdriver.evaluate_prd(j), tdriver.evaluate_prd(t)
         assert want.keys() == got.keys() == {"prd"}

@@ -6,7 +6,11 @@ on seeded inputs on the CPU:
 - ``metrics/ssim.py`` within 1e-6 on random pairs and on a
   near-identical pair (the variance-cancellation case), and both sides at
   the closed form on flat images;
-- ``losses/prd_eval.py`` in train, val and test modes within relative 1e-5;
+- ``losses/prd_eval.py`` in train, val and test modes within relative 1e-5,
+  its distances in float64 on both sides (the JAX side's by
+  ``_torch_support.jax_prd_distances_in_float64``); a one-ulp move of every
+  ray moves the mean by under relative 1e-5, and by more than that with the
+  reference's float32 distances;
 - ``train/checkpoint.py``: an exact round trip of parameters, camera,
   moments, count and step, the step after a restore equal to the step
   without one, ``keep`` pruning, ``None`` for an empty directory,
@@ -23,6 +27,7 @@ import jax.numpy as jnp  # noqa: E402
 import torch  # noqa: E402
 
 from _torch_support import hang_watchdog  # noqa: E402,F401
+from _torch_support import jax_prd_distances_in_float64  # noqa: E402
 from scnerf_tpu.camera import model as jcam  # noqa: E402
 from scnerf_tpu.camera import rays as jrays  # noqa: E402
 from scnerf_tpu.geometry import alignment as jalign  # noqa: E402
@@ -174,7 +179,8 @@ def _prd_scene():
 
 class TestPrdEvaluation:
     @pytest.mark.parametrize("mode", ["train", "val", "test"])
-    def test_prd_evaluation_alike(self, mode):
+    def test_prd_evaluation_alike(self, mode, monkeypatch):
+        jax_prd_distances_in_float64(monkeypatch)
         K, E, cache, t_cache, cam, t_cam, (H, W, f) = _prd_scene()
         pairs = np.array([[0, 1], [1, 2], [0, 2]])  # (0, 2) has no matches
         kw = dict(mode=mode, method="NeRF", max_matches=64, threshold=5.0)
@@ -204,6 +210,46 @@ class TestPrdEvaluation:
                 gt_K=K, gt_E=E, device="cpu", **kw)
         assert np.isfinite(j_val) and j_val > 0
         np.testing.assert_allclose(t_val, j_val, rtol=1e-5)
+
+    @pytest.mark.parametrize("seed", [0, 1])
+    def test_float64_distances_hold_under_ray_rounding(self, seed, monkeypatch):
+        """Every ray moved by one float32 ulp at random, the rounding by
+        which two devices' rays differ: the mean moves by under relative
+        1e-5, the limit the card is held to against the CPU; with the
+        reference's float32 distances the mean of this scene (5 degrees
+        between the cameras) moves by more (1.4e-4 and 1.8e-4 for these
+        seeds)."""
+        _, _, _, t_cache, _, t_cam, _ = _prd_scene()
+        rng = np.random.default_rng(seed)
+        pairs = np.array([[0, 1], [1, 2]])
+
+        def rays(k, i):
+            return trays.pixels_to_rays(t_cam, k[:, 0], k[:, 1], image_idx=i)
+
+        def moved(k, i):
+            return tuple(torch.from_numpy((r + rng.choice([-1.0, 1.0], r.shape)
+                                           * np.spacing(r)).astype(np.float32))
+                         for r in (x.numpy() for x in rays(k, i)))
+
+        def rel():
+            def mean(fn):
+                return tprd_eval.prd_evaluation(
+                    pairs, t_cache, fn, tcam.get_intrinsic(t_cam), tcam.get_extrinsics(t_cam),
+                    mode="train", method="NeRF", max_matches=64, device="cpu")
+            return abs(mean(moved) / mean(rays) - 1.0)
+
+        float64 = rel()
+        loss = tprd_eval.prd_loss
+
+        def in_float32(*args, **kwargs):
+            def cast(x):
+                if isinstance(x, tuple):
+                    return tuple(cast(v) for v in x)
+                return x.float() if isinstance(x, torch.Tensor) and x.is_floating_point() else x
+            return loss(*cast(args), **{k: cast(v) for k, v in kwargs.items()})
+
+        monkeypatch.setattr(tprd_eval, "prd_loss", in_float32)
+        assert float64 < 1e-5 < rel(), (float64, rel())
 
     def test_gt_filter_alike(self):
         K, E, cache, t_cache, cam, t_cam, (H, W, f) = _prd_scene()

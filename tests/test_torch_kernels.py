@@ -459,7 +459,8 @@ def test_package_imports_no_jax():
     """Every module of the port, and chip_smoke.py, imports in a fresh
     interpreter without pulling in jax or the JAX package, nor any of the
     optional libraries the card's machine lacks (imageio, PIL, cv2, orbax,
-    wandb, matplotlib): those are imported only where they are used."""
+    wandb, matplotlib, transformers, safetensors, huggingface_hub): those
+    are imported only where they are used, or not at all."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import scnerf_tpu_torch as p\n"
@@ -469,8 +470,9 @@ def test_package_imports_no_jax():
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'scnerf_tpu.')) or m == 'scnerf_tpu')\n"
         "optional = sorted(m for m in sys.modules\n"
         "                  if m.split('.')[0] in ('imageio', 'PIL', 'cv2', 'orbax', 'wandb',\n"
-        "                                         'matplotlib'))\n"
-        "assert len(names) >= 65, names\n"
+        "                                         'matplotlib', 'transformers', 'safetensors',\n"
+        "                                         'huggingface_hub'))\n"
+        "assert len(names) >= 73, names\n"
         "assert {'scnerf_tpu_torch.kernels.mlp_cuda', 'scnerf_tpu_torch.kernels.searchsorted_cuda',\n"
         "        'scnerf_tpu_torch.losses.prd', 'scnerf_tpu_torch.train.step',\n"
         "        'scnerf_tpu_torch.core.config', 'scnerf_tpu_torch.core.imaging',\n"
@@ -483,7 +485,12 @@ def test_package_imports_no_jax():
         "        'scnerf_tpu_torch.cli.train', 'scnerf_tpu_torch.cli.render',\n"
         "        'scnerf_tpu_torch.data.nerfpp_split', 'scnerf_tpu_torch.data.blender',\n"
         "        'scnerf_tpu_torch.train.nerfpp_driver', 'scnerf_tpu_torch.metrics.lpips',\n"
-        "        'scnerf_tpu_torch.tools.video', 'scnerf_tpu_torch.tools.convert'} <= set(names), names\n"
+        "        'scnerf_tpu_torch.tools.video', 'scnerf_tpu_torch.tools.convert',\n"
+        "        'scnerf_tpu_torch.matching.superpoint', 'scnerf_tpu_torch.matching.superglue',\n"
+        "        'scnerf_tpu_torch.matching.superglue_hf',\n"
+        "        'scnerf_tpu_torch.tools.calibration_baselines', 'scnerf_tpu_torch.tools.visualize',\n"
+        "        'scnerf_tpu_torch.tools.colmap', 'scnerf_tpu_torch.tools.colmap_db',\n"
+        "        'scnerf_tpu_torch.tools.colmap_runner'} <= set(names), names\n"
         "assert not bad, bad\n"
         "assert not optional, optional\n"
     )

@@ -38,6 +38,7 @@ import jax.numpy as jnp  # noqa: E402
 import torch  # noqa: E402
 
 from _torch_support import hang_watchdog  # noqa: E402,F401
+from _torch_support import jax_prd_distances_in_float64  # noqa: E402
 from _torch_support import project_opencv, write_nerfpp_scene  # noqa: E402
 from scnerf_tpu.core.config import load_experiment as j_load  # noqa: E402
 from scnerf_tpu.data import nerfpp_split as jsplit  # noqa: E402
@@ -374,7 +375,9 @@ class TestEvaluation:
         assert abs(got["ssim"] - want["ssim"]) < 1e-5
 
     @pytest.mark.parametrize("camera", [True, False])
-    def test_evaluate_nerfpp_prd_alike(self, tmp_path, scene, pair, camera):
+    def test_evaluate_nerfpp_prd_alike(self, tmp_path, scene, pair, camera, monkeypatch):
+        # Distances in float64 on both sides, as the port's driver computes them.
+        jax_prd_distances_in_float64(monkeypatch)
         if camera:
             j, t = pair
         else:
