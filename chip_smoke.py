@@ -416,20 +416,21 @@ def per_call_ms(fn, calls: int = TIMING_CALLS, repeats: int = TIMING_REPEATS) ->
 
 def device_ms(fn, calls: int = TIMING_CALLS) -> float:
     """Device time of one call of ``fn``: the time of its kernels under
-    ``torch.profiler`` over ``calls`` calls, over the count."""
-    from torch.profiler import ProfilerActivity, profile
+    ``torch.profiler`` over ``calls`` calls, over the count
+    (``train/profiling.py:roofline_summary``)."""
+    from torch.profiler import ProfilerActivity
+
+    from scnerf_tpu_torch.train.profiling import profile_rows, roofline_summary, trace
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with trace(None, activities=[ProfilerActivity.CUDA], with_flops=False) as prof:
         for _ in range(calls):
             fn()
-        torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA)
-    require(total > 0, "the profiler saw no device time")
-    return total / 1e3 / calls
+    cols, rows = profile_rows(prof)
+    require(any(r[1] == "cuda" and r[3] > 0 for r in rows), "the profiler saw no device time")
+    return roofline_summary(cols, rows, calls)["device_us_per_step"] / 1e3
 
 
 def rodrigues(axis: np.ndarray, angle: np.ndarray) -> np.ndarray:
@@ -1126,7 +1127,7 @@ def train_tree(model_params: dict, camera, device) -> dict:
 
 
 def train_setup(slice_, dev, *, with_prd=False, raw_noise_std=0.0, camera=None,
-                curriculum=None):
+                curriculum=None, group=None):
     """(step function, its optimizer, a fresh train state) for bench.py's
     NeRF train workload on ``slice_``'s weights and camera."""
     from scnerf_tpu_torch.train.curriculum import Curriculum
@@ -1139,7 +1140,7 @@ def train_setup(slice_, dev, *, with_prd=False, raw_noise_std=0.0, camera=None,
                             near=TRAIN_NEAR, far=TRAIN_FAR)
     optimizer = RecordingOptimizer(Optimizer.from_config(train_cfg))
     step = make_train_step(model_cfg, render_cfg, train_cfg, curriculum or Curriculum(),
-                           optimizer, with_prd=with_prd)
+                           optimizer, with_prd=with_prd, group=group)
     state = create_train_state(train_tree(params, camera or slice_camera, dev), optimizer)
     return step, optimizer, state
 
@@ -1176,49 +1177,54 @@ PROFILE_RANGES = ("sample_pdf_diff_backward",)  # kernels/pdf_cuda.py's K2 backw
 
 
 def profile_steps(run_step, state, n: int = TRAIN_PROFILED):
-    """Device time of ``n`` steps by kernel group under ``torch.profiler``,
-    and the share of the window's host-clock time in which the device ran
-    no kernel. Returns (state, {group: ms per step}, idle share, top
-    kernels)."""
-    from torch.profiler import ProfilerActivity, profile
+    """Device time of ``n`` steps by kernel group under ``torch.profiler``
+    (read by ``train/profiling.py:profile_rows``), and the share of the
+    window's host-clock time in which the device ran no kernel. Returns
+    (state, {group: ms per step}, idle share, top kernels)."""
+    from torch.profiler import ProfilerActivity
+
+    from scnerf_tpu_torch.train.profiling import profile_rows, roofline_summary, trace
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with trace(None, activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+               with_flops=False) as prof:
         t0 = time.perf_counter()
         for _ in range(n):
             state, _ = run_step(state)
         torch.cuda.synchronize()
         window_ms = (time.perf_counter() - t0) * 1e3
-    events = prof.key_averages()
-    # A profiler range also shows as a device event spanning its kernels: it
-    # is read below, apart from the kernels.
-    kernels = [(e.key, e.count, e.self_device_time_total / 1e3) for e in events
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and e.self_device_time_total > 0 and e.key not in PROFILE_RANGES]
+    cols, rows = profile_rows(prof)
+    col = {c: i for i, c in enumerate(cols)}
+    name, calls, self_us, dev_us = (col[c] for c in ("name", "calls", "self_device_us",
+                                                      "device_us"))
+    # A profiler range also shows as a device event spanning its kernels:
+    # profile_rows keeps it as a host row, read below apart from the kernels.
+    kernels = [(r[name], r[calls], r[self_us] / 1e3) for r in rows
+               if r[col["device"]] == "cuda" and r[self_us] > 0]
     require(bool(kernels), "the profiler saw no device time in the train step")
+    host = [r for r in rows if r[col["device"]] == "cpu"]
     # The host's calls into the CUDA runtime, a step: launches, copies and
     # waits for the device.
-    runtime = {e.key: e.count / n for e in events
-               if e.device_type == torch.autograd.DeviceType.CPU and e.key.startswith("cuda")}
-    ops = sorted(((e.count / n, e.key) for e in events
-                  if e.device_type == torch.autograd.DeviceType.CPU
-                  and e.key.startswith("aten::")), reverse=True)[:10]
+    runtime = {r[name]: r[calls] / n for r in host if r[name].startswith("cuda")}
+    ops = sorted(((r[calls] / n, r[name]) for r in host if r[name].startswith("aten::")),
+                 reverse=True)[:10]
     groups = {}
     for key, _, ms in kernels:
-        name = key.lower()
-        group = next((g for g, subs in KERNEL_GROUPS if any(x in name for x in subs)), "other")
+        lower = key.lower()
+        group = next((g for g, subs in KERNEL_GROUPS if any(x in lower for x in subs)), "other")
         groups[group] = groups.get(group, 0.0) + ms / n
     top = sorted(kernels, key=lambda k: -k[2])[:8]
     launches = sum(count for _, count, _ in kernels) / n
     # The device time of the kernels launched inside each profiler range
     # (K2's backward is PyTorch ops: no kernel of its own names it).
-    ranges = {e.key: (e.count / n, e.device_time_total / 1e3 / n) for e in events
-              if e.device_type == torch.autograd.DeviceType.CPU and e.key in PROFILE_RANGES}
+    ranges = {r[name]: (r[calls] / n, r[dev_us] / 1e3 / n) for r in host
+              if r[name] in PROFILE_RANGES}
     resamplers = [(key, count / n, ms / n) for key, count, ms in kernels
                   if "sample_pdf" in key.lower()]
+    device_ms_a_step = roofline_summary(cols, rows, n)["device_us_per_step"] / 1e3
     return state, dict(groups=groups, top=top, ops=ops, kernels_a_step=launches,
                        runtime_a_step=runtime, window_ms_a_step=window_ms / n, ranges=ranges,
-                       resamplers=resamplers)
+                       resamplers=resamplers, device_ms_a_step=device_ms_a_step)
 
 
 def sync_sites(run_step, state):
@@ -1388,6 +1394,7 @@ def phase_train(dev, card, slice_):
     return dict(train_launches=launches, train_max_abs_err=k1_err, train_steps=steps, train_ms=ms,
                 train_rays_per_s=rays_per_s, train_peak_gib=peak_gib,
                 train_idle=idle, train_profile_ms=profile["groups"],
+                train_device_ms=profile["device_ms_a_step"],
                 train_kernels_a_step=profile["kernels_a_step"])
 
 
@@ -3694,6 +3701,380 @@ def phase_superglue_driver(dev, card, root, cpu):
             "driver_launches": launches, "driver_held_to_cpu": held, "phase22_s": seconds}
 
 
+# ---------------------------------------------------------------------------
+# Phases 23-26: the serving export, the profiling helpers, the native host
+# library and data parallelism
+# ---------------------------------------------------------------------------
+
+EXPORT_PIXELS = 65536  # phase 23's request, each pipeline
+EXPORT_TURNS = 3
+# Phase 23's fresh process: torch and the loader alone. It loads each
+# artifact, serves the request through RenderService, counts the kernels the
+# loaded program launched by name under torch.profiler, and writes the maps.
+LOADER = r"""
+import json, sys, time
+import numpy as np
+import torch
+sys.path.insert(0, sys.argv[1])
+from scnerf_tpu_torch.serve import RenderService, artifact_device, load_serving_fn
+from scnerf_tpu_torch.train.profiling import profile_rows, trace
+report = {}
+for name, a in json.loads(sys.argv[2]).items():
+    load_s = []
+    for _ in range(2):  # the first load in a process also imports torch.export's modules
+        t0 = time.perf_counter()
+        fn = load_serving_fn(a["path"])
+        load_s.append(time.perf_counter() - t0)
+    service = RenderService(fn, a["batch"], device="cuda")
+    inputs = [np.load(p) for p in a["inputs"]]
+    service(*inputs)
+    with trace(None, with_flops=False) as prof:
+        maps = service(*inputs)
+    kernels = {r[0]: r[2] for r in profile_rows(prof)[1] if r[1] == "cuda" and "sample_pdf" in r[0]}
+    np.savez(a["out"], **maps)
+    report[name] = {"load_s": load_s, "operators": fn.operators, "kernels": kernels,
+                    "device": str(artifact_device(fn.exported))}
+model = sorted(m for m in sys.modules
+               if m.startswith(("scnerf_tpu_torch.render", "scnerf_tpu_torch.fields")))
+print(json.dumps({"artifacts": report, "model_modules": model, "torch": torch.__version__}))
+"""
+K1_KERNEL, K2_KERNEL = "sample_pdf_kernel<false", "sample_pdf_kernel<true"
+
+
+def serve_limits(got: dict, want: dict, what: str) -> float:
+    """The serving limits (median |err| < 1e-5, max < 1e-3) on every map;
+    returns the largest |err|."""
+    worst = 0.0
+    for k, v in want.items():
+        err = np.abs(np.asarray(got[k], np.float64) - np.asarray(v, np.float64))
+        require(float(np.median(err)) < 1e-5 and float(err.max()) < 1e-3,
+                f"{what} {k}: median|err| {np.median(err):.3e}, max {err.max():.3e}")
+        worst = max(worst, float(err.max()))
+    return worst
+
+
+def phase_export(dev, card, root):
+    """Phase 23: the fern NeRF and the Truck NeRF++ serve functions exported
+    on the card, loaded in a fresh process without the model code, held to
+    the serve functions and timed against RenderService."""
+    from scnerf_tpu_torch.camera import pixels_to_rays
+    from scnerf_tpu_torch.serve import (
+        RenderService, export_serving_fn, load_serving_fn, make_nerf_serve_fn,
+        make_nerfpp_serve_fn, nerf_serve_specs, nerfpp_serve_specs,
+    )
+
+    print("== phase 23: the serving export at full fern and Truck width on the card")
+    started = time.perf_counter()
+    print(f"  torch {torch.__version__}")
+    model_cfg, render_cfg, params, camera, ndc = make_slice(dev)
+    pp_model, pp_render, levels, pp_camera = make_nerfpp_slice(dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 23)
+
+    def pixels(cam, h, w, n_images):
+        px = torch.randint(0, w, (EXPORT_PIXELS,), generator=gen, device=dev)
+        py = torch.randint(0, h, (EXPORT_PIXELS,), generator=gen, device=dev)
+        idx = torch.randint(0, n_images, (EXPORT_PIXELS,), generator=gen, device=dev)
+        with torch.no_grad():
+            return [x.cpu().numpy() for x in pixels_to_rays(cam, px, py, image_idx=idx)]
+
+    n = EXPORT_PIXELS
+    cases = {
+        "nerf": (make_nerf_serve_fn(params, model_cfg, render_cfg, ndc=ndc),
+                 nerf_serve_specs(BATCH), BATCH,
+                 pixels(camera, H, W, N_IMAGES) + [np.zeros(n, np.float32),
+                                                   np.ones(n, np.float32)]),
+        "nerfpp": (make_nerfpp_serve_fn(levels, pp_model, pp_render),
+                   nerfpp_serve_specs(PP_BATCH), PP_BATCH,
+                   pixels(pp_camera, PP_H, PP_W, PP_IMAGES) + [np.full(n, 1e-4, np.float32)]),
+    }
+    spec, record = {}, {}
+    for name, (fn, specs, batch, inputs) in cases.items():
+        path = os.path.join(root, f"{name}.pt2")
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        data = export_serving_fn(fn, specs, path, device=dev)
+        export_s = time.perf_counter() - t0
+        traced = launch_counts()
+        files = []
+        for i, x in enumerate(inputs):
+            files.append(os.path.join(root, f"{name}_in{i}.npy"))
+            np.save(files[-1], x)
+        spec[name] = {"path": path, "batch": batch, "inputs": files,
+                      "out": os.path.join(root, f"{name}_out.npz")}
+        record[name] = {"export_s": export_s, "bytes": len(data)}
+        print(f"  {name}: exported in {export_s:.2f} s, {len(data)} bytes "
+              f"({len(data) / 2**20:.2f} MiB), batch {batch}; wrapper counts while tracing "
+              f"(not launches): K1 {traced['K1']}, K2 {traced['K2']}")
+
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", LOADER, os.path.dirname(os.path.abspath(__file__)),
+                           json.dumps(spec)], capture_output=True, text=True, timeout=600)
+    fresh_s = time.perf_counter() - t0
+    require(proc.returncode == 0, f"the fresh loader process failed:\n{proc.stderr[-4000:]}")
+    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    require(report["model_modules"] == [],
+            f"the loader process imported model code: {report['model_modules']}")
+    print(f"  fresh process (torch {report['torch']}, no scnerf_tpu_torch.render or .fields "
+          f"module imported): {fresh_s:.1f} s in all")
+
+    for name, (fn, _, batch, inputs) in cases.items():
+        got_report = report["artifacts"][name]
+        slices = -(-EXPORT_PIXELS // batch)
+        k1 = sum(c for k, c in got_report["kernels"].items() if K1_KERNEL in k)
+        k2 = sum(c for k, c in got_report["kernels"].items() if K2_KERNEL in k)
+        want_k1, want_k2 = (slices, 0) if name == "nerf" else (0, 2 * slices)
+        require(got_report["device"] == "cuda:0", f"{name}: artifact on {got_report['device']}")
+        require((k1, k2) == (want_k1, want_k2),
+                f"{name}: the loaded program launched K1 {k1} and K2 {k2} times; derived "
+                f"{want_k1} and {want_k2} ({slices} slices)")
+        service = RenderService(fn, batch, device=dev)
+        want = service(*inputs)
+        with np.load(spec[name]["out"]) as npz:
+            got = {k: npz[k] for k in npz.files}
+        require(set(got) == set(want), f"{name}: maps {sorted(got)}")
+        worst = serve_limits(got, want, f"phase 23 {name}")
+        loaded = RenderService(load_serving_fn(spec[name]["path"]), batch, device=dev)
+        loaded(*inputs)
+        rates = {"loaded": [], "RenderService": []}
+        for _ in range(EXPORT_TURNS):
+            for label, svc in (("loaded", loaded), ("RenderService", service)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                svc(*inputs)  # ends in a device->host copy
+                rates[label].append(EXPORT_PIXELS / (time.perf_counter() - t0))
+        rates = {k: statistics.median(v) for k, v in rates.items()}
+        record[name].update(load_s=got_report["load_s"], max_abs_err=worst, k1=k1, k2=k2,
+                            operators=got_report["operators"], rays_per_s=rates)
+        print(f"  {name}: loaded in {got_report['load_s'][0]:.2f} s, then again in "
+              f"{got_report['load_s'][1]:.2f} s in the fresh process, "
+              f"operators {got_report['operators']}; K1 {k1} and K2 {k2} launches inside the "
+              f"loaded program (derived {want_k1}, {want_k2}); max|err| against the serve "
+              f"function {worst:.3e}; {EXPORT_PIXELS} rays, median of {EXPORT_TURNS} turns: "
+              f"loaded {rates['loaded']:.1f} rays/s, RenderService {rates['RenderService']:.1f} "
+              f"rays/s ({card})")
+    seconds = time.perf_counter() - started
+    print(f"  phase 23: {seconds:.1f} s")
+    return dict(export=record, export_k1_launches=record["nerf"]["k1"],
+                export_k2_launches=record["nerfpp"]["k2"], phase23_s=seconds)
+
+
+def mlp_macs_per_point(params: dict) -> int:
+    """Multiply-adds of one point through a NeRF MLP: every dense layer's
+    ``in x out``."""
+    from scnerf_tpu_torch.train.optim import named_leaves
+
+    return sum(int(w.shape[0]) * int(w.shape[1]) for path, w in named_leaves(params).items()
+               if path.endswith("/w"))
+
+
+def phase_profiling(dev, card, train_device_ms):
+    """Phase 24: ``measure_roofline`` over phase 10's fern train step."""
+    from scnerf_tpu_torch.train.device_sampling import make_device_sampling_step
+    from scnerf_tpu_torch.train.profiling import measure_roofline
+
+    print("== phase 24: measure_roofline over the fern train step (phase 10's setup)")
+    started = time.perf_counter()
+    slice_ = make_slice(dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+    images = torch.rand((N_IMAGES, H, W, 3), generator=gen, device=dev)
+    base, _, state = train_setup(slice_, dev)
+    step = make_device_sampling_step(base, images, TRAIN_RAYS)
+    for _ in range(TRAIN_WARMUP):
+        state, _ = step(state, gen)
+    torch.cuda.synchronize()
+    held = [state]
+
+    def run_steps(n):
+        for _ in range(n):
+            held[0], _ = step(held[0], gen)
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_") as logdir:
+        got = measure_roofline(run_steps, n_steps=TRAIN_PROFILED, logdir=logdir)
+        traces = [f for f in os.listdir(logdir) if f.endswith(".pt.trace.json")]
+        trace_mb = sum(os.path.getsize(os.path.join(logdir, f)) for f in traces) / 1e6
+    require(set(got) == {"device_us_per_step", "measured_flops_per_step"},
+            f"measure_roofline returned {got}")
+    require(len(traces) == 1, f"trace files written: {traces}")
+    device_ms = got["device_us_per_step"] / 1e3
+    rel = abs(device_ms / train_device_ms - 1.0)
+    require(rel < 0.10, f"measure_roofline's {device_ms:.3f} ms of device time a step against "
+                        f"phase 10's {train_device_ms:.3f} ms: {rel:.2%} apart")
+    render_cfg = slice_[1]
+    points = TRAIN_RAYS * (render_cfg.n_samples + render_cfg.n_samples + render_cfg.n_importance)
+    # Forward 2 FLOPs a multiply-add; the backward twice that (the weights'
+    # and the inputs' gradients).
+    derived = 3 * 2 * mlp_macs_per_point(slice_[2]["coarse"]) * points
+    flops = got["measured_flops_per_step"]
+    seconds = time.perf_counter() - started
+    print(f"  device time {device_ms:.3f} ms a step against phase 10's {train_device_ms:.3f} ms "
+          f"({rel:.2%} apart; limit 10%); measured {flops:.4e} FLOPs a step (the profiler's "
+          f"formulas) against {derived:.4e} derived for the MLPs ({points} points a step, "
+          f"forward and backward), ratio {flops / derived:.4f}; {flops / device_ms / 1e9:.2f} "
+          f"TFLOP/s over the device time; trace {trace_mb:.1f} MB ({card}); phase "
+          f"{seconds:.1f} s")
+    return dict(roofline_device_ms=device_ms, roofline_rel_to_phase10=rel,
+                roofline_flops=flops, roofline_derived_flops=derived, phase24_s=seconds)
+
+
+def median_ms(fn, repeats: int = 5) -> float:
+    times = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def phase_native(card):
+    """Phase 25: the native host library on K4's shapes and on the pixel
+    pool's permutation, against numpy."""
+    from scnerf_tpu_torch import native
+
+    print("== phase 25: the native host library (g++) against numpy")
+    started = time.perf_counter()
+    t0 = time.perf_counter()
+    require(native.available(), "the native library did not build or load")
+    print(f"  {native.library_path()} ready in {time.perf_counter() - t0:.2f} s")
+    rng = np.random.default_rng(SEED + 25)
+    record = {}
+    for rows, n, m in SEARCH_SHAPES:
+        a = np.sort(rng.random((rows, n)), -1).astype(np.float32)
+        v = rng.random((rows, m)).astype(np.float32)
+        for side in ("left", "right"):
+            got = native.searchsorted_host(a, v, side)
+            want = np.stack([np.searchsorted(a[i], v[i], side) for i in range(rows)])
+            require(np.array_equal(got, want), f"searchsorted {side} on ({rows}, {n}, {m})")
+        lib_ms = median_ms(lambda: native.searchsorted_host(a, v, "left"))
+        np_ms = median_ms(lambda: [np.searchsorted(a[i], v[i]) for i in range(rows)])
+        record[f"searchsorted_{rows}x{n}x{m}"] = {"native_ms": lib_ms, "numpy_ms": np_ms}
+        print(f"  searchsorted ({rows} rows of {n}, {m} queries), both sides equal to numpy's: "
+              f"{lib_ms:.3f} ms, numpy row by row {np_ms:.3f} ms")
+    n = PP_H * PP_W
+    perm = native.permutation_host(n, SEED)
+    require(np.array_equal(np.sort(perm), np.arange(n)), "not a permutation")
+    require(np.array_equal(perm, native.permutation_host(n, SEED)), "not the same for a seed")
+    lib_ms = median_ms(lambda: native.permutation_host(n, SEED))
+    np_ms = median_ms(lambda: np.random.RandomState(SEED).permutation(n))
+    images = rng.random((2, PP_H, PP_W, 3), dtype=np.float32)
+    img = (perm % 2).astype(np.int64)
+    px, py = perm % PP_W, (perm // PP_W) % PP_H
+    require(np.array_equal(native.gather_pixels_host(images, img, px, py), images[img, py, px]),
+            "gather_pixels_host")
+    gather_ms = median_ms(lambda: native.gather_pixels_host(images, img, px, py))
+    fancy_ms = median_ms(lambda: images[img, py, px])
+    record["permutation"] = {"native_ms": lib_ms, "numpy_ms": np_ms}
+    record["gather_pixels"] = {"native_ms": gather_ms, "numpy_ms": fancy_ms}
+    seconds = time.perf_counter() - started
+    print(f"  permutation of the pool's {n} pixels: {lib_ms:.3f} ms, np.random.permutation "
+          f"{np_ms:.3f} ms; gather of {n} pixels {gather_ms:.3f} ms, numpy indexing "
+          f"{fancy_ms:.3f} ms (host of the {card} machine); phase {seconds:.1f} s")
+    return dict(native=record, phase25_s=seconds)
+
+
+DP_STEPS = 5
+DP_TURNS = 3
+DP_SERVE_PIXELS = 16384
+
+
+def phase_distributed(dev, card):
+    """Phase 26: NCCL at world size 1: the data-parallel NeRF step against
+    the plain step, and the grouped service against the ungrouped one."""
+    import socket
+
+    import torch.distributed as dist
+
+    from scnerf_tpu_torch import distributed as tdist
+    from scnerf_tpu_torch.camera import pixels_to_rays
+    from scnerf_tpu_torch.serve import RenderService, make_nerf_serve_fn
+    from scnerf_tpu_torch.train.device_sampling import make_device_sampling_step
+    from scnerf_tpu_torch.train.optim import named_leaves
+
+    print("== phase 26: data parallelism on NCCL at world size 1")
+    started = time.perf_counter()
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    topo = tdist.initialize_runtime(f"localhost:{port}", 1, 0, backend="nccl", timeout_s=120)
+    try:
+        require(topo == {"process_index": 0, "process_count": 1, "local_devices": 1,
+                         "global_devices": 1} and dist.get_backend() == "nccl",
+                f"topology {topo}, backend {dist.get_backend()}")
+        slice_ = make_slice(dev)
+        images = torch.rand((N_IMAGES, H, W, 3),
+                            generator=torch.Generator(device=dev).manual_seed(SEED + 26),
+                            device=dev)
+        runs = {}
+        for label, group in (("plain", None), ("plain again", None),
+                             ("data-parallel", dist.group.WORLD)):
+            base, _, state = train_setup(slice_, dev, group=group)
+            runs[label] = [make_device_sampling_step(base, images, TRAIN_RAYS), state,
+                           torch.Generator(device=dev).manual_seed(SEED + 260)]
+        # The camera rows' and noise cells' gradients are index_add's sums,
+        # which add in a varying order (atomics) unless PyTorch's
+        # deterministic kernels are asked for: the plain step alone is then
+        # not bit-reproducible. Compare under them; time without them.
+        import warnings
+
+        os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+        losses = {label: [] for label in runs}
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                for _ in range(DP_STEPS):
+                    for label, run in runs.items():
+                        run[1], m = run[0](run[1], run[2])
+                        losses[label].append(float(m["loss"]))
+        finally:
+            torch.use_deterministic_algorithms(False)
+        undetermined = sorted({str(w.message).split(".")[0] for w in caught
+                               if "deterministic" in str(w.message)})
+        require(len({tuple(v) for v in losses.values()}) == 1, f"losses {losses}")
+        leaves = {label: named_leaves(run[1].params) for label, run in runs.items()}
+        for label in ("plain again", "data-parallel"):
+            unequal = [k for k, x in leaves["plain"].items()
+                       if not torch.equal(x, leaves[label][k])]
+            require(not unequal, f"{label}: parameters not bit-equal to the plain step's after "
+                                 f"{DP_STEPS} steps: {unequal} (operators without a "
+                                 f"deterministic kernel: {undetermined})")
+        del runs["plain again"]
+        ms = {label: [] for label in runs}
+        for _ in range(DP_TURNS):
+            for label, run in runs.items():
+                run[1], _, step_ms = time_steps(lambda s, r=run: r[0](s, r[2]), run[1], DP_STEPS)
+                ms[label].append(step_ms)
+        ms = {label: statistics.median(v) for label, v in ms.items()}
+        print(f"  {DP_STEPS} steps from one state and one generator's draws, deterministic "
+              f"kernels: losses and every parameter of the plain step, its rerun and the "
+              f"data-parallel step bit-equal (operators that warned of no deterministic "
+              f"kernel: {undetermined or 'none'}); ms a step by CUDA events, median of "
+              f"{DP_TURNS} turns of "
+              f"{DP_STEPS}: plain {ms['plain']:.3f}, data-parallel {ms['data-parallel']:.3f} "
+              f"({card})")
+        model_cfg, render_cfg, params, camera, ndc = slice_
+        fn = make_nerf_serve_fn(params, model_cfg, render_cfg, ndc=ndc)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 27)
+        px = torch.randint(0, W, (DP_SERVE_PIXELS,), generator=gen, device=dev)
+        py = torch.randint(0, H, (DP_SERVE_PIXELS,), generator=gen, device=dev)
+        with torch.no_grad():
+            rays = pixels_to_rays(camera, px, py, image_idx=0)
+        near, far = torch.zeros(DP_SERVE_PIXELS, device=dev), torch.ones(DP_SERVE_PIXELS,
+                                                                         device=dev)
+        grouped = RenderService(fn, BATCH, device=dev, group=dist.group.WORLD)(*rays, near, far)
+        single = RenderService(fn, BATCH, device=dev)(*rays, near, far)
+        require(all(np.array_equal(grouped[k], single[k]) for k in single),
+                "RenderService(group=) differs from the ungrouped service")
+        print(f"  RenderService(group=) on {DP_SERVE_PIXELS} rays equal to the ungrouped "
+              f"service")
+    finally:
+        dist.destroy_process_group()
+    seconds = time.perf_counter() - started
+    print(f"  phase 26: {seconds:.1f} s")
+    return dict(dp_step_ms=ms, phase26_s=seconds)
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on an NVIDIA card",
@@ -3781,6 +4162,12 @@ def main() -> int:
             else:
                 os.environ["HF_HUB_CACHE"] = hub
 
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_export_") as root:
+        export_record = phase_export(dev, card, root)
+    export_record.update(phase_profiling(dev, card, train_record["train_device_ms"]))
+    export_record.update(phase_native(card))
+    export_record.update(phase_distributed(dev, card))
+
     seconds = time.perf_counter() - started
     print(f"chip_smoke: {seconds:.1f} s in all, the kernels' build included")
     print(json.dumps({"kernels": [{
@@ -3795,6 +4182,7 @@ def main() -> int:
         "driver_launches": driver_record["driver_launches"],
         "superglue_driver_launches": match_record["driver_launches"],
         "render_cli_launches": truck_record["render_cli_k1_launches"],
+        "export_launches": export_record["export_k1_launches"],
         **record,
     }, {
         "name": "sample_pdf_nerfpp",
@@ -3809,6 +4197,7 @@ def main() -> int:
         "driver_launches": truck_record["truck_launches"],
         "driver_cdf_launches": truck_record["truck_cdf_launches"],
         "render_cli_launches": truck_record["render_cli_k2_launches"],
+        "export_launches": export_record["export_k2_launches"],
         **pp_train_k2,
     }, {
         "name": "searchsorted",
@@ -3829,6 +4218,7 @@ def main() -> int:
     }], "train": {**train_record, **prd_record, **pp_train_record, **fisheye_record,
                   **driver_record, **truck_record},
         "matching": match_record,
+        "runtime": export_record,
         "seconds": seconds}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -6,8 +6,11 @@
 //   torch.ops.scnerf_tpu_torch.sample_pdf_fwd(bins, weights, u, variant,
 //                                             with_cdf) -> (out, inds, cdf?)
 //
-// Only CUDA implementations are registered: kernels/pdf_cuda.py sends CPU
-// tensors to the plain twin before it reaches an operator. No derivative is
+// The schemas are defined in Python (kernels/pdf_cuda.py, with the fake
+// implementations that torch.export traces), so this file registers only the
+// CUDA implementations: a second TORCH_LIBRARY of the namespace would fail at
+// load time. kernels/pdf_cuda.py sends CPU tensors to the plain twin before
+// it reaches an operator. No derivative is
 // registered: the wrappers refuse an input that requires grad under grad
 // mode before they call an operator, and sample_pdf_diff (an autograd
 // function around sample_pdf_fwd) is the differentiable route. The checks raise
@@ -110,12 +113,6 @@ std::tuple<at::Tensor, at::Tensor, std::optional<at::Tensor>> sample_pdf_fwd_cud
 }
 
 }  // namespace
-
-TORCH_LIBRARY(scnerf_tpu_torch, m) {
-  m.def("sample_pdf(Tensor bins, Tensor weights, Tensor u) -> Tensor");
-  m.def("sample_pdf_fwd(Tensor bins, Tensor weights, Tensor u, str variant, bool with_cdf)"
-        " -> (Tensor, Tensor, Tensor?)");
-}
 
 TORCH_LIBRARY_IMPL(scnerf_tpu_torch, CUDA, m) {
   m.impl("sample_pdf", &sample_pdf_cuda);

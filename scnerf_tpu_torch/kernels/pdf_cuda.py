@@ -23,12 +23,15 @@ launches, ``cdf_launches`` the ones that saved the CDF.
 Both kernels are instantiations of one template in ``csrc/sample_pdf.cu``
 (one warp per ray, a binary search over the CDF; its header says what bounds
 it and how the design answers), launched through registered PyTorch
-operators (``csrc/sample_pdf_op.cpp``: the checks, the outputs' allocation
-and the launch in C++, behind the dispatcher), built and loaded at first use
-by ``_build.load_ops``. The tensor's device decides the route: a CUDA tensor
-always goes to the operator (injected ``u`` included) or raises, a CPU tensor
-takes the twin after the same checks in Python. There is no fallback from
-one to the other.
+operators. Their schemas and fake (shape-only) implementations are defined
+here, at import, so that ``torch.export`` and ``meta`` tensors can trace
+them anywhere; their CUDA implementations (``csrc/sample_pdf_op.cpp``: the
+checks, the outputs' allocation and the launch in C++, behind the
+dispatcher) are built and loaded at first use by ``_build.load_ops``. No CPU
+implementation is registered. The tensor's device decides the route: a CUDA
+tensor always goes to the operator (injected ``u`` included) or raises, a CPU
+tensor takes the twin after the same checks in Python. There is no fallback
+from one to the other.
 """
 from __future__ import annotations
 
@@ -49,6 +52,26 @@ VARIANTS = ("nerf", "nerfpp")
 launches = 0
 diff_launches = 0
 cdf_launches = 0  # the K2 launches that wrote the CDF (a part of diff_launches)
+
+# The operators' schemas. ``csrc/sample_pdf_op.cpp`` registers only their
+# CUDA implementations (``TORCH_LIBRARY_IMPL``): a second ``TORCH_LIBRARY``
+# of the namespace would fail when the library loads.
+OPS_NAMESPACE = "scnerf_tpu_torch"
+_LIB = torch.library.Library(OPS_NAMESPACE, "DEF")
+_LIB.define("sample_pdf(Tensor bins, Tensor weights, Tensor u) -> Tensor")
+_LIB.define("sample_pdf_fwd(Tensor bins, Tensor weights, Tensor u, str variant, "
+            "bool with_cdf) -> (Tensor, Tensor, Tensor?)")
+
+
+@torch.library.register_fake(f"{OPS_NAMESPACE}::sample_pdf", lib=_LIB)
+def _sample_pdf_fake(bins, weights, u):
+    return torch.empty_like(u)
+
+
+@torch.library.register_fake(f"{OPS_NAMESPACE}::sample_pdf_fwd", lib=_LIB)
+def _sample_pdf_fwd_fake(bins, weights, u, variant, with_cdf):
+    cdf = torch.empty_like(bins) if with_cdf else None
+    return torch.empty_like(u), torch.empty_like(u, dtype=torch.int32), cdf
 
 
 @functools.cache

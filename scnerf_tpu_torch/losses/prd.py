@@ -19,6 +19,7 @@ from __future__ import annotations
 import torch
 
 from scnerf_tpu_torch.camera.distortion import undistort_pixels
+from scnerf_tpu_torch.distributed.reduce import global_count, share
 from scnerf_tpu_torch.geometry.so3 import se3_inverse
 
 _EPS = 1e-10
@@ -157,9 +158,12 @@ def prd_loss(
         v0 = valid_base * (loss0 < threshold) * torch.isfinite(loss0)
         v1 = valid_base * (loss1 < threshold) * torch.isfinite(loss1)
         zero = loss0.new_zeros(())
-        l0 = torch.sum(torch.where(v0 > 0, loss0, zero)) / torch.clamp(torch.sum(v0), min=1.0)
-        l1 = torch.sum(torch.where(v1 > 0, loss1, zero)) / torch.clamp(torch.sum(v1), min=1.0)
-        return 0.5 * (l0 + l1), torch.sum(v0 * v1)
+        # Means over the valid matches of every rank in a data-parallel step.
+        l0 = share(torch.sum(torch.where(v0 > 0, loss0, zero))
+                   / torch.clamp(global_count(torch.sum(v0)), min=1.0))
+        l1 = share(torch.sum(torch.where(v1 > 0, loss1, zero))
+                   / torch.clamp(global_count(torch.sum(v1)), min=1.0))
+        return 0.5 * (l0 + l1), global_count(torch.sum(v0 * v1))
     loss0 = torch.where(torch.logical_and(loss0 <= threshold, torch.isfinite(loss0)),
                         loss0, threshold)
     loss1 = torch.where(torch.logical_and(loss1 <= threshold, torch.isfinite(loss1)),

@@ -41,9 +41,9 @@ import torch
 from scnerf_tpu_torch.fields.nerfpp import NerfPPConfig, nerfpp_forward
 from scnerf_tpu_torch.geometry.sphere import intersect_sphere
 from scnerf_tpu_torch.kernels.pdf_cuda import sample_pdf_diff
-from scnerf_tpu_torch.render.renderer import pad_edge
 from scnerf_tpu_torch.sampling.pdf import pdf_uniforms
 from scnerf_tpu_torch.sampling.stratified import perturb_z_vals
+from scnerf_tpu_torch.serve import pad_edge
 
 PDF_IMPLS = ("xla", "pallas_vjp", "pallas_stopgrad")
 LAST_LEVEL_MAPS = ("rgb", "fg_rgb", "bg_rgb", "fg_depth", "bg_depth", "bg_lambda")

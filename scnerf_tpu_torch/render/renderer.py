@@ -18,6 +18,7 @@ from scnerf_tpu_torch.kernels.pdf_cuda import sample_pdf_core
 from scnerf_tpu_torch.render.composite import raw2outputs
 from scnerf_tpu_torch.sampling.pdf import pdf_uniforms
 from scnerf_tpu_torch.sampling.stratified import stratified_z_vals
+from scnerf_tpu_torch.serve import pad_edge
 
 
 @dataclasses.dataclass(frozen=True)
@@ -120,14 +121,6 @@ def render_rays(
             z_std=torch.std(z_samples, dim=-1, correction=0),
         )
     return out
-
-
-def pad_edge(x: torch.Tensor, pad: int) -> torch.Tensor:
-    """Append ``pad`` copies of the last row (``np.pad(mode="edge")`` on
-    axis 0)."""
-    if pad == 0:
-        return x
-    return torch.cat([x, x[-1:].expand(pad, *x.shape[1:])], dim=0)
 
 
 def render_chunked(

@@ -1,25 +1,41 @@
-"""Serving: fixed-batch render functions and a service that pads requests
-onto them.
+"""Serving: fixed-batch render functions, portable artifacts of them, and a
+service that pads requests onto them.
 
-Port of ``scnerf_tpu/serve.py``'s ``make_nerf_serve_fn``,
-``make_nerfpp_serve_fn`` and ``RenderService``, for one device. The serve
-functions bake in the eval-path semantics: deterministic resampling and no
-jitter; for NeRF also viewdirs from the world rays, the optional NDC warp
-with the learned focal (near/far then 0/1), no sigma noise and the rgb clamp
-at 1. They run under ``inference_mode`` in full float32.
+Port of ``scnerf_tpu/serve.py``. The serve functions
+(:func:`make_nerf_serve_fn`, :func:`make_nerfpp_serve_fn`) bake in the
+eval-path semantics: deterministic resampling and no jitter; for NeRF also
+viewdirs from the world rays, the optional NDC warp with the learned focal
+(near/far then 0/1), no sigma noise and the rgb clamp at 1. They run under
+``inference_mode`` in full float32.
+
+:func:`export_serving_fn` writes a serve function as a ``torch.export``
+artifact (``.pt2``) with its weights as constants, traced at a fixed batch
+(:func:`nerf_serve_specs`, :func:`nerfpp_serve_specs`); K1 and K2 stay in it
+as calls of their registered operators. :func:`load_serving_fn` runs it
+without the model code. :class:`RenderService` serves any request size
+through a serve function or a loaded artifact, on one device or split over
+the ranks of a process group.
+
+The port runs eager, so the JAX package's ``enable_compilation_cache`` (a
+persistent XLA cache for restarted workers) has no counterpart here, and the
+service has no ``cost_analysis``.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import io
 from typing import Callable, Sequence
 
 import numpy as np
 import torch
 
-from scnerf_tpu_torch.geometry.ndc import ndc_rays
-from scnerf_tpu_torch.render.nerfpp_renderer import render_rays_nerfpp
-from scnerf_tpu_torch.render.renderer import pad_edge, render_rays
+def pad_edge(x: torch.Tensor, pad: int) -> torch.Tensor:
+    """Append ``pad`` copies of the last row (``np.pad(mode="edge")`` on
+    axis 0)."""
+    if pad == 0:
+        return x
+    return torch.cat([x, x[-1:].expand(pad, *x.shape[1:])], dim=0)
 
 
 @contextlib.contextmanager
@@ -64,6 +80,9 @@ def make_nerf_serve_fn(
         this focal before rendering; near/far become 0/1.
       outputs: which maps to return.
     """
+    from scnerf_tpu_torch.geometry.ndc import ndc_rays
+    from scnerf_tpu_torch.render.renderer import render_rays
+
     eval_cfg = render_cfg.eval_mode()
 
     def fn(rays_o, rays_d, near, far):
@@ -97,6 +116,8 @@ def make_nerfpp_serve_fn(level_params: list, model_cfg, render_cfg) -> Callable:
       level_params: one ``{"fg", "bg"}`` param dict per cascade level, on
         the device the rays will come on (closed over).
     """
+    from scnerf_tpu_torch.render.nerfpp_renderer import render_rays_nerfpp
+
     eval_cfg = dataclasses.replace(render_cfg, perturb=False)
 
     def fn(ray_o, ray_d, min_depth):
@@ -108,18 +129,159 @@ def make_nerfpp_serve_fn(level_params: list, model_cfg, render_cfg) -> Callable:
     return fn
 
 
+@dataclasses.dataclass(frozen=True)
+class TensorSpec:
+    """The shape and dtype of one argument of a serve function."""
+
+    shape: tuple
+    dtype: torch.dtype = torch.float32
+
+
+def nerf_serve_specs(batch: int) -> tuple:
+    """``rays_o (B, 3)``, ``rays_d (B, 3)``, ``near (B,)``, ``far (B,)``,
+    float32."""
+    return (TensorSpec((batch, 3)), TensorSpec((batch, 3)), TensorSpec((batch,)),
+            TensorSpec((batch,)))
+
+
+def nerfpp_serve_specs(batch: int) -> tuple:
+    """``ray_o (B, 3)``, ``ray_d (B, 3)``, ``min_depth (B,)``, float32."""
+    return TensorSpec((batch, 3)), TensorSpec((batch, 3)), TensorSpec((batch,))
+
+
+class _Served(torch.nn.Module):
+    def __init__(self, fn: Callable):
+        super().__init__()
+        self.fn = fn
+
+    def forward(self, *args):
+        return self.fn(*args)
+
+
+def random_operators(program) -> list[str]:
+    """The operators of an exported program's graph that draw random
+    numbers (PyTorch tags them ``nondeterministic_seeded``)."""
+    return sorted({str(node.target) for node in program.graph.nodes
+                   if node.op == "call_function"
+                   and torch.Tag.nondeterministic_seeded in getattr(node.target, "tags", ())})
+
+
+def export_serving_fn(fn: Callable, specs: Sequence[TensorSpec], path: str | None = None, *,
+                      device: torch.device | str = "cuda") -> bytes:
+    """Export ``fn`` at ``specs`` with ``torch.export`` (non-strict) and return
+    the artifact's bytes, also written to ``path`` when given.
+
+    ``fn``'s weights, closed over, become the program's constants. Its
+    arguments are traced on ``device``, where the weights must lie: a CUDA
+    artifact keeps its constants on the card, and K1 and K2 stay in it as
+    calls of ``torch.ops.scnerf_tpu_torch.*`` (traced by their fake
+    implementations). Raises ``RuntimeError`` if the graph draws random
+    numbers: serving is deterministic.
+    """
+    args = tuple(torch.zeros(s.shape, dtype=s.dtype, device=device) for s in specs)
+    program = torch.export.export(_Served(fn), args, strict=False)
+    drawn = random_operators(program)
+    if drawn:
+        raise RuntimeError(f"the exported serve function draws random numbers: {drawn}")
+    buffer = io.BytesIO()
+    torch.export.save(program, buffer)
+    data = buffer.getvalue()
+    if path is not None:
+        with open(path, "wb") as f:
+            f.write(data)
+    return data
+
+
+def artifact_operators(program) -> list[str]:
+    """The port's registered operators (K1, K2) that an exported program
+    calls."""
+    from scnerf_tpu_torch.kernels import pdf_cuda
+
+    prefix = pdf_cuda.OPS_NAMESPACE + "."
+    return sorted({str(node.target) for node in program.graph.nodes
+                   if node.op == "call_function" and str(node.target).startswith(prefix)})
+
+
+def artifact_device(program) -> torch.device:
+    """The device an exported program's inputs were traced on."""
+    for node in program.graph.nodes:
+        if node.op == "placeholder" and isinstance(node.meta.get("val"), torch.Tensor):
+            return node.meta["val"].device
+    raise ValueError("the exported program has no tensor input")
+
+
+def load_serving_fn(path_or_bytes) -> Callable:
+    """Load an artifact of :func:`export_serving_fn`; returns
+    ``fn(*tensors) -> {maps}``.
+
+    Needs only torch and the operator library, none of the model code: the
+    schemas of K1 and K2 come from ``kernels/pdf_cuda.py`` and, for a CUDA
+    artifact that calls them, their library is built (if needed) and loaded
+    by ``kernels._build.load_ops``. A CUDA artifact needs a card to load.
+    Each call runs under :func:`fp32_inference`, since export does not
+    record the TF32 flags, and restores the caller's after. ``fn.exported``
+    is the ``ExportedProgram``, ``fn.operators`` the operators it calls.
+    """
+    from scnerf_tpu_torch.kernels import _build, pdf_cuda  # noqa: F401 (the schemas)
+
+    if isinstance(path_or_bytes, (bytes, bytearray)):
+        path_or_bytes = io.BytesIO(bytes(path_or_bytes))
+    program = torch.export.load(path_or_bytes)
+    operators = artifact_operators(program)
+    if operators and artifact_device(program).type == "cuda":
+        _build.load_ops("sample_pdf")
+    module = program.module()
+
+    def fn(*args):
+        with fp32_inference():
+            return module(*args)
+
+    fn.exported = program
+    fn.operators = operators
+    fn.module = module
+    return fn
+
+
 class RenderService:
     """Serves ray batches of any size through a fixed-batch serve function.
 
     A request is moved to ``device`` as float32, edge-padded to a multiple of
     ``batch`` and run slice by slice; slices queue on the device without a
     host sync, and the maps come back to the host once, as numpy.
+
+    With a process ``group`` (the JAX service's ``mesh=``), each rank renders
+    its contiguous share of every slice, ``batch // world`` rays, so ``fn``
+    takes that many (an artifact is exported at the share), and an
+    ``all_gather`` hands every rank the whole result. A ``batch`` that the
+    group's size does not divide raises ``ValueError``. The JAX service's
+    ``cost_analysis`` is XLA's and has no counterpart.
     """
 
-    def __init__(self, fn: Callable, batch: int, *, device: torch.device | str):
+    def __init__(self, fn: Callable, batch: int, *, device: torch.device | str = "cuda",
+                 group=None):
         self.fn = fn
         self.batch = batch
         self.device = torch.device(device)
+        self.group = group
+        self.world, self.rank = 1, 0
+        if group is not None:
+            import torch.distributed as dist
+
+            self.world, self.rank = dist.get_world_size(group), dist.get_rank(group)
+            if batch % self.world:
+                raise ValueError(f"batch {batch} not divisible by the group's size "
+                                 f"{self.world}")
+        self.share = batch // self.world
+
+    def _gather(self, out: dict) -> dict:
+        import torch.distributed as dist
+
+        whole = {}
+        for k in sorted(out):
+            parts = [torch.empty_like(out[k]) for _ in range(self.world)]
+            dist.all_gather(parts, out[k].contiguous(), group=self.group)
+            whole[k] = torch.cat(parts)
+        return whole
 
     def __call__(self, *arrays) -> dict[str, np.ndarray]:
         n = arrays[0].shape[0]
@@ -132,6 +294,9 @@ class RenderService:
             pad_edge(torch.as_tensor(x, dtype=torch.float32).to(self.device), pad)
             for x in arrays
         ]
-        outs = [self.fn(*(x[i * b:(i + 1) * b] for x in padded))
-                for i in range(n_slices)]
+        lo = self.rank * self.share
+        outs = []
+        for i in range(n_slices):
+            out = self.fn(*(x[i * b + lo:i * b + lo + self.share] for x in padded))
+            outs.append(out if self.group is None else self._gather(out))
         return {k: torch.cat([o[k] for o in outs])[:n].cpu().numpy() for k in outs[0]}

@@ -23,6 +23,7 @@ from scnerf_tpu_torch.camera.model import (
     Camera, get_distortion, get_extrinsic, get_intrinsic,
 )
 from scnerf_tpu_torch.camera.rays import pixels_to_rays
+from scnerf_tpu_torch.distributed.reduce import batch_mean
 from scnerf_tpu_torch.fields.nerfpp import NerfPPConfig, autoexpo_params
 from scnerf_tpu_torch.losses.photometric import img2mse, masked_mse, mse2psnr
 from scnerf_tpu_torch.losses.prd import prd_loss
@@ -56,6 +57,7 @@ def make_nerfpp_train_step(
     curriculum: Curriculum,
     optimizer: Optimizer,
     with_prd: bool = False,
+    group=None,
 ):
     """Build ``step(state, batch, generator) -> (state, metrics)``.
 
@@ -75,6 +77,8 @@ def make_nerfpp_train_step(
     ``metrics``: ``mse_{m}`` per level, ``psnr`` of the last level,
     ``loss``, and with PRD ``prd`` and ``prd_matches``, as detached 0-d
     tensors.
+
+    ``group``: data-parallel over a process group, as ``make_train_step``'s.
     """
 
     def loss_fn(params, batch, generator, step):
@@ -97,7 +101,7 @@ def make_nerfpp_train_step(
                     scale, shift = scale[..., None], shift[..., None]
                 pred = (pred - shift) / scale
                 reg = train_cfg.lambda_autoexpo * (
-                    torch.mean(torch.abs(scale - 1.0)) + torch.mean(torch.abs(shift)))
+                    batch_mean(torch.abs(scale - 1.0)) + batch_mean(torch.abs(shift)))
             mse = img2mse(pred, target) if mask is None else masked_mse(pred, target, mask)
             loss = loss + mse if reg is None else loss + mse + reg
             metrics[f"mse_{m}"] = mse
@@ -129,4 +133,4 @@ def make_nerfpp_train_step(
         metrics["loss"] = loss
         return loss, metrics
 
-    return make_step_fn(loss_fn, curriculum, optimizer)
+    return make_step_fn(loss_fn, curriculum, optimizer, group=group)

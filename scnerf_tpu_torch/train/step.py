@@ -13,6 +13,7 @@ detached (``render/renderer.py``), as the JAX step stops the gradient there.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any
 
@@ -68,6 +69,7 @@ def make_train_step(
     curriculum: Curriculum,
     optimizer: Optimizer,
     with_prd: bool = False,
+    group=None,
 ):
     """Build ``step(state, batch, generator) -> (state, metrics)``.
 
@@ -82,6 +84,12 @@ def make_train_step(
 
     ``metrics``: ``loss``, ``mse``, ``psnr``, ``mse0`` (with a fine net),
     and with PRD ``prd`` and ``prd_matches``, as detached 0-d tensors.
+
+    With a process ``group`` (``torch.distributed.group.WORLD`` for the
+    default one) the step is data-parallel (:func:`make_step_fn`): ``batch`` is this rank's shard
+    (``distributed.shard_batch``, with ``pair_idx`` replicated), ``rands``
+    its slice of the whole batch's draws, and the metrics are the whole
+    batch's.
     """
 
     def loss_fn(params, batch, generator, step):
@@ -142,23 +150,36 @@ def make_train_step(
         metrics["loss"] = loss
         return loss, metrics
 
-    return make_step_fn(loss_fn, curriculum, optimizer)
+    return make_step_fn(loss_fn, curriculum, optimizer, group=group)
 
 
-def make_step_fn(loss_fn, curriculum: Curriculum, optimizer: Optimizer):
+def make_step_fn(loss_fn, curriculum: Curriculum, optimizer: Optimizer, *, group=None):
     """The step around ``loss_fn(params, batch, generator, step) -> (loss,
     metrics)``, shared by the NeRF and NeRF++ steps: ``step(state, batch,
     generator=None) -> (state, metrics)`` takes one ``autograd.grad`` over
     the trainable leaves under :func:`fp32`, masks the camera's gradients by
     the curriculum, updates the leaves in place and returns the metrics
-    detached."""
+    detached.
+
+    With a process ``group`` (``torch.distributed.group.WORLD`` for the
+    default one), the loss is
+    computed under ``distributed.reduce.data_parallel``, so that its value is
+    the whole batch's and each rank holds its share of the gradient, and
+    every trainable leaf's gradient, the camera's included, is summed over
+    the ranks between ``autograd.grad`` and the optimizer: every rank then
+    takes the same update."""
+    if group is not None:
+        from scnerf_tpu_torch.distributed import reduce
 
     def step_fn(state: TrainState, batch: dict, generator: torch.Generator | None = None):
         leaves = trainable_leaves(state.params)
-        with fp32():
+        scope = contextlib.nullcontext() if group is None else reduce.data_parallel(group)
+        with fp32(), scope:
             loss, metrics = loss_fn(state.params, batch, generator, state.step)
             grads = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()),
                                                          allow_unused=True)))
+            if group is not None:
+                grads = reduce.all_reduce_grads(grads, group)
             grads = mask_camera_grads(grads, state.step, curriculum)
             apply_updates(leaves, optimizer.update(grads, state.opt_state, leaves))
         metrics = {k: v.detach() for k, v in metrics.items()}

@@ -40,7 +40,7 @@ import sys
 
 import numpy as np
 import torch
-from torch.profiler import ProfilerActivity, profile
+from torch.profiler import ProfilerActivity
 
 CALLS = 5
 HOST_CALLS = 1000
@@ -50,22 +50,22 @@ COMPARE_COUNT_DEVICE_MS = {"K1": 0.0105, "K2": 0.0099}
 
 
 def device_ms(fn, calls: int = CALLS, attempts: int = 3) -> tuple[float, dict]:
-    """Device milliseconds per call, and {kernel name: (count, us)}. A
-    profiler window that records no device activity at all is taken again
-    (up to ``attempts`` windows)."""
+    """Device milliseconds per call, and {kernel name: (count, us)}, read by
+    ``train/profiling.py:profile_rows``. A profiler window that records no
+    device activity at all is taken again (up to ``attempts`` windows)."""
+    from scnerf_tpu_torch.train.profiling import profile_rows, roofline_summary, trace
+
     fn()
     torch.cuda.synchronize()
     for _ in range(attempts):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with trace(None, activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                   with_flops=False) as prof:
             for _ in range(calls):
                 fn()
-            torch.cuda.synchronize()
-        kernels = {e.key: (e.count, e.self_device_time_total) for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA
-                   and e.self_device_time_total > 0}
-        total_us = sum(us for _, us in kernels.values())
-        if total_us > 0:
-            return total_us / calls / 1e3, kernels
+        cols, rows = profile_rows(prof)
+        kernels = {r[0]: (r[2], r[3]) for r in rows if r[1] == "cuda" and r[3] > 0}
+        if kernels:
+            return roofline_summary(cols, rows, calls)["device_us_per_step"] / 1e3, kernels
     raise SystemExit("torch_kernel_profile: the profiler saw no device time")
 
 

@@ -18,7 +18,7 @@ import pytest
 import torch
 
 from _torch_support import hang_watchdog  # noqa: F401
-from scnerf_tpu_torch import bridge
+from scnerf_tpu_torch import bridge, distributed, serve
 from scnerf_tpu_torch.camera import model as camera_model
 from scnerf_tpu_torch.camera import rays
 from scnerf_tpu_torch.fields import mlp, nerf, nerfpp
@@ -312,7 +312,8 @@ class TestBuild:
 ENTRY_POINTS = [camera_model.init_camera, nerf.init_nerf_mlp, nerfpp.init_mlpnet,
                 nerfpp.init_nerfpp_net, mlp.init_dense, bridge.tree_to_torch,
                 bridge.camera_from_numpy, bridge.train_params_to_torch,
-                rays.full_image_pixels]
+                rays.full_image_pixels, serve.export_serving_fn, serve.RenderService,
+                distributed.shard_batch]
 
 
 @pytest.mark.parametrize("fn", ENTRY_POINTS, ids=lambda fn: fn.__name__)
@@ -472,7 +473,7 @@ def test_package_imports_no_jax():
         "                  if m.split('.')[0] in ('imageio', 'PIL', 'cv2', 'orbax', 'wandb',\n"
         "                                         'matplotlib', 'transformers', 'safetensors',\n"
         "                                         'huggingface_hub'))\n"
-        "assert len(names) >= 73, names\n"
+        "assert len(names) >= 79, names\n"
         "assert {'scnerf_tpu_torch.kernels.mlp_cuda', 'scnerf_tpu_torch.kernels.searchsorted_cuda',\n"
         "        'scnerf_tpu_torch.losses.prd', 'scnerf_tpu_torch.train.step',\n"
         "        'scnerf_tpu_torch.core.config', 'scnerf_tpu_torch.core.imaging',\n"
@@ -490,7 +491,10 @@ def test_package_imports_no_jax():
         "        'scnerf_tpu_torch.matching.superglue_hf',\n"
         "        'scnerf_tpu_torch.tools.calibration_baselines', 'scnerf_tpu_torch.tools.visualize',\n"
         "        'scnerf_tpu_torch.tools.colmap', 'scnerf_tpu_torch.tools.colmap_db',\n"
-        "        'scnerf_tpu_torch.tools.colmap_runner'} <= set(names), names\n"
+        "        'scnerf_tpu_torch.tools.colmap_runner', 'scnerf_tpu_torch.cli.export',\n"
+        "        'scnerf_tpu_torch.native', 'scnerf_tpu_torch.distributed',\n"
+        "        'scnerf_tpu_torch.distributed.init', 'scnerf_tpu_torch.distributed.mesh',\n"
+        "        'scnerf_tpu_torch.distributed.reduce'} <= set(names), names\n"
         "assert not bad, bad\n"
         "assert not optional, optional\n"
     )
