@@ -1,6 +1,7 @@
 """Drive the PyTorch port's NeRF and NeRF++ serving paths, its NeRF and
-NeRF++ train steps, its NeRF and NeRF++ training CLI, its render CLI and its
-SuperPoint + SuperGlue matcher once on an NVIDIA card.
+NeRF++ train steps, its NeRF and NeRF++ training CLI, its render CLI, its
+SuperPoint + SuperGlue matcher, its runtime modules and its
+self-calibration experiments and examples once on an NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -264,6 +265,36 @@ the JAX package. Phases, each of which exits non-zero when it fails:
     pairs, ``matches.npz`` as read back equal to the matcher rerun on the
     card on the pair's train views, and that rerun held to the CPU port by
     phase 21's limits.
+
+23-26. The serving export, ``measure_roofline``, the native host library and
+    data parallelism on NCCL (each phase function says what it holds).
+27. The curriculum ablation at full width over a short horizon:
+    ``scnerf_tpu_torch.scripts.ablation_curriculum.main`` at 120x160, 8x256,
+    N_rand 1024, 64+64, its five rows (``gt_poses``, ``noisy_no_calib``,
+    ``ie``, ``ie_od``, ``ie_od_prd``) at 300 steps each, so ``add_od`` 50 and
+    ``add_prd`` 100, each evaluated on both test views. The analytic scene's
+    16 GT views on the card against the CPU port (median |err| < 1e-6, max
+    < 1e-4); the PRD row's ``matches.npz`` equal to the exact matches of the
+    CPU-rendered scene; the initial camera errors the same in the three
+    camera rows and within 1e-6 relative of the CPU port's from the same
+    config; every metric finite; each row's last step's loss below its
+    first; PRD on the steps the curriculum gives, each with a match batch,
+    and valid matches on most of them (each PRD step's count printed); K1
+    launched once a step and once a chunk of the two held-out renders in
+    each row. Printed: each row's ms a step by
+    CUDA events, plain and PRD apart, held-out PSNR and SSIM, camera errors
+    before and after, the classical baselines, and the 3 dB gate, which is
+    not held at 300 steps.
+28. The four examples: ``distortion_discovery`` at its own 1,500 steps (its
+    k error and its PRD must fall), ``calibration_ablation``,
+    ``self_calibration_demo`` and ``from_scratch_calibration`` at 300 steps
+    (finite outcomes, the loss falling in each arm); K1 launched once a
+    train step and once a chunk of each held-out render; K1's first call at
+    each shape the examples give it (1,024 train rays and the 8,192-ray
+    chunks of a 100x100 render, the last edge-padded; 47 bins, 48 samples)
+    held against its plain twin with phase 2's criterion, the render's
+    samples at u = 1 (its deterministic u's last) to lie in the last bin on
+    both sides; each example's outcomes, ms a step and seconds printed.
 
 Each serving path, each of K3's and K4's own paths and each train path run
 with the kernels' launch counts set to 0 just before and read just after. The
@@ -4075,6 +4106,284 @@ def phase_distributed(dev, card):
 
 
 
+ABLATION_STEPS = 300  # phase 27's horizon a row: add_od 50, add_prd 100, as the script derives
+EXAMPLE_STEPS = 300  # phase 28's, but distortion_discovery's own 1,500
+
+
+def relay(text: str, prefixes: tuple = ()) -> None:
+    """The lines of a captured run (those starting with ``prefixes`` when
+    given), indented."""
+    lines = [line for line in text.strip().splitlines()
+             if not prefixes or line.startswith(prefixes)]
+    if lines:
+        print("  " + "\n  ".join(lines))
+
+
+def phase_ablation(dev, card, root):
+    """Phase 27: ``scripts/ablation_curriculum.main`` at full width over 300
+    steps a row, on the card, held to the CPU port where it can be."""
+    import io
+
+    from scnerf_tpu_torch.data.blender import load_blender
+    from scnerf_tpu_torch.scripts import _analytic_scene, ablation_curriculum, soak_nerf
+    from scnerf_tpu_torch.train import driver
+
+    print(f"== phase 27: the curriculum ablation at full width, {ABLATION_STEPS} steps a row")
+    started = time.perf_counter()
+    t0 = time.perf_counter()
+    card_views = _analytic_scene.build_blender_scene(os.path.join(root, "scene_card"), device=dev)
+    scene_s = time.perf_counter() - t0
+    cpu_views = _analytic_scene.build_blender_scene(os.path.join(root, "scene_cpu"), device="cpu")
+    err = np.concatenate([np.abs(card_views[k] - cpu_views[k]).ravel() for k in card_views])
+    print(f"  the analytic scene's 16 views of 120x160 (192 samples a ray) on the card in "
+          f"{scene_s:.2f} s; against the CPU port: median |err| {np.median(err):.3e}, max "
+          f"{err.max():.3e}")
+    require(np.median(err) < 1e-6 and err.max() < 1e-4,
+            f"GT views, card against CPU: median {np.median(err)}, max {err.max()}")
+
+    captured, launches, prd_batches = {}, {}, []
+    build, run_row = driver.build_experiment, ablation_curriculum.run_row
+
+    def capturing(cfg, expdir=None, **kwargs):
+        exp = build(cfg, expdir, **kwargs)
+        exp.step_fn = StepRecorder(exp.step_fn)
+        if exp.step_prd_fn is not None:
+            prd_fn = exp.step_prd_fn
+
+            def keeping_masks(state, batch, generator):
+                prd_batches.append(batch["kp_mask"])
+                return prd_fn(state, batch, generator)
+
+            exp.step_prd_fn = StepRecorder(keeping_masks)
+        captured[cfg.logging.expname] = exp
+        return exp
+
+    def counted_row(name, *args, **kwargs):
+        torch.cuda.synchronize()
+        reset_launches()
+        out = run_row(name, *args, **kwargs)
+        torch.cuda.synchronize()
+        launches[name] = launch_counts()["K1"]
+        return out
+
+    driver.build_experiment = capturing
+    ablation_curriculum.run_row = counted_row
+    out = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out):
+            report = ablation_curriculum.main(ABLATION_STEPS, None, os.path.join(root, "ablation"),
+                                              device=dev)
+    finally:
+        driver.build_experiment = build
+        ablation_curriculum.run_row = run_row
+    relay(out.getvalue(), ("[ablation",))
+    require(report["curriculum"] == {"add_od": ABLATION_STEPS // 6, "add_prd": ABLATION_STEPS // 3},
+            f"curriculum {report['curriculum']}")
+
+    rows = {r["name"]: r for r in report["rows"]}
+    require(list(rows) == ["gt_poses", "noisy_no_calib", "ie", "ie_od", "ie_od_prd"],
+            f"rows {list(rows)}")
+    record = {}
+    for name, row in rows.items():
+        exp = captured[name]
+        require(exp.device.type == "cuda", f"row {name} built on {exp.device}")
+        numbers = [row["heldout_psnr"], row["heldout_ssim"], row["final_train_loss"],
+                   *row["camera_err_initial"].values(), *row["camera_err_final"].values()]
+        require(all(math.isfinite(v) for v in numbers), f"row {name}: {row}")
+        calls = sorted(exp.step_fn.read() + (exp.step_prd_fn.read() if exp.step_prd_fn else []),
+                       key=lambda c: c[0])
+        # Each call is recorded with the step count after it: 1 for step 0.
+        require([c[0] for c in calls] == list(range(1, ABLATION_STEPS + 1)),
+                f"row {name}'s steps")
+        for step, _, m in calls:
+            require(all(math.isfinite(v) for v in m.values()), f"row {name} step {step}: {m}")
+        first, last = calls[0][2]["loss"], calls[-1][2]["loss"]
+        require(last < first, f"row {name}: the last loss {last} is not below the first {first}")
+        prd_calls = [c for c in calls if "prd" in c[2]]
+        if name == "ie_od_prd":
+            add_prd = exp.curriculum.add_prd
+            want = [it + 1 for it in range(ABLATION_STEPS) if it >= add_prd and it % 10 == 0]
+            prd_steps = [c[0] for c in prd_calls]
+            require(prd_steps == want, f"PRD steps {prd_steps}, want {want}")
+            in_batch = [int(m.sum()) for m in prd_batches]
+            matches = [int(c[2]["prd_matches"]) for c in prd_calls]
+            print(f"  {name}: on the PRD steps {prd_steps}: matches in the batch {in_batch}, "
+                  f"valid {matches}")
+            require(len(in_batch) == len(want) and min(in_batch) > 0,
+                    f"PRD steps without a match batch: {in_batch}")
+            # A match counts only while both of its reprojections stay
+            # within 5 px^2, and at step 100 a pair's errors sit near that:
+            # the first PRD step's pair (the same in every run) read 440
+            # and 400 valid matches in two runs on the card and 0 in a
+            # third, the card's atomics parting the trajectories. PRD is
+            # live when most of its steps take valid matches.
+            live = sum(n > 0 for n in matches)
+            require(2 * live > len(matches),
+                    f"valid PRD matches on {live} of {len(matches)} PRD steps: {matches}")
+        else:
+            require(not prd_calls, f"row {name} took PRD steps")
+        views = len(exp.i_test)
+        chunks = -(-exp.H * exp.W // exp.render_cfg.chunk)
+        want = ABLATION_STEPS + views * chunks
+        require(launches[name] == want, f"row {name}: K1 launched {launches[name]} times, want "
+                                        f"{ABLATION_STEPS} steps + {views} views x {chunks} chunks")
+        ms = {"plain": percentiles([c[1] for c in calls if "prd" not in c[2] and c[0] > 2]),
+              "prd": percentiles([c[1] for c in prd_calls])}
+        record[name] = dict(psnr=row["heldout_psnr"], ssim=row["heldout_ssim"], step_ms=ms,
+                            camera_err_initial=row["camera_err_initial"],
+                            camera_err_final=row["camera_err_final"], wall_s=row["wall_s"],
+                            launches=launches[name],
+                            prd_matches_first=prd_calls[0][2]["prd_matches"] if prd_calls else None)
+        print(f"  {name}: held-out PSNR {row['heldout_psnr']:.3f} dB, SSIM "
+              f"{row['heldout_ssim']:.4f}; loss {first:.5f} -> {last:.5f}; ms a step by CUDA "
+              f"events (after the first two) plain {ms['plain']}, PRD {ms['prd']}; camera "
+              f"errors {row['camera_err_initial']} -> {row['camera_err_final']}; K1 "
+              f"{launches[name]} = {ABLATION_STEPS} + {views} x {chunks}; train {row['wall_s']} s")
+
+    initial = [rows[n]["camera_err_initial"] for n in ("ie", "ie_od", "ie_od_prd")]
+    require(initial[0] == initial[1] == initial[2], f"initial camera errors differ: {initial}")
+    flags = dict(ablation_curriculum.rows_spec(ABLATION_STEPS))["ie"]
+    cfg = ablation_curriculum.row_config("ie", os.path.join(root, "ablation", "scene"),
+                                         os.path.join(root, "cpu"), flags, small=False)
+    cpu_err = soak_nerf.camera_errors(driver.build_experiment(cfg, None, device="cpu"))
+    rel = max(abs(initial[0][k] - v) / abs(v) for k, v in cpu_err.items())
+    print(f"  initial camera errors, the same in the three camera rows: {initial[0]}; the CPU "
+          f"port's from the same config: relative {rel:.3e}")
+    require(rel <= 1e-6, f"initial camera errors on the CPU port {cpu_err}")
+
+    d = load_blender(os.path.join(root, "scene_cpu"), testskip=1)
+    matches_path = os.path.join(root, "matches_cpu.npz")
+    soak_nerf.write_exact_matches(matches_path, d.gt_poses, d.i_split[0], d.gt_intrinsic[0, 0],
+                                  d.H, d.W)
+    got = np.load(os.path.join(root, "ablation", "ie_od_prd", "matches.npz"))
+    want = np.load(matches_path)
+    require(sorted(got.files) == sorted(want.files)
+            and all(np.array_equal(got[k], want[k]) for k in want.files),
+            "the PRD row's matches.npz differs from the CPU scene's exact matches")
+    gain = report["full_vs_noisy_gain_db"]
+    seconds = time.perf_counter() - started
+    print(f"  exact matches: {len(want.files) // 2} pairs, equal to the CPU scene's; full method "
+          f"against the noisy baseline {gain:+.2f} dB (the 3 dB gate {report['gain_gate_pass']}, "
+          f"not held at {ABLATION_STEPS} steps); rotation error shrinks in every camera row: "
+          f"{report['rot_err_shrinks_all_camera_rows']}; classical baselines "
+          f"{report['classical_baselines']}; phase {seconds:.1f} s ({card})")
+    return dict(ablation=record, ablation_gain_db=gain,
+                ablation_classical=report["classical_baselines"], phase27_s=seconds)
+
+
+@contextlib.contextmanager
+def first_resamples(kept: dict):
+    """K1's inputs and outputs, the first call at each shape, kept in
+    ``kept`` by ``(bins, weights, u)`` shapes while the block runs."""
+    from scnerf_tpu_torch.render import renderer
+
+    core = renderer.sample_pdf_core
+
+    def recording(bins, weights, u):
+        out = core(bins, weights, u)
+        shapes = tuple(tuple(x.shape) for x in (bins, weights, u))
+        if shapes not in kept:
+            kept[shapes] = tuple(x.detach().clone() for x in (bins, weights, u, out))
+        return out
+
+    renderer.sample_pdf_core = recording
+    try:
+        yield kept
+    finally:
+        renderer.sample_pdf_core = core
+
+
+def phase_examples(dev, card):
+    """Phase 28: the four examples on the card. K1 is held against its plain
+    twin on the first call at each shape the examples give it (48 fine
+    samples: half of each lane's second u slot is empty, a branch the
+    64-sample shapes of phases 2 and 10 do not take)."""
+    import io
+
+    from scnerf_tpu_torch.kernels import pdf_cuda
+
+    from scnerf_tpu_torch.examples import (
+        _common,
+        calibration_ablation,
+        distortion_discovery,
+        from_scratch_calibration,
+        self_calibration_demo,
+    )
+
+    print("== phase 28: the four examples on the card")
+    started = time.perf_counter()
+    record = {}
+    # K1 launches: one a train step, one a chunk of 8,192 rays of each held-out
+    # 100x100 render (two test views in each arm of the ablation, one from
+    # scratch); the distortion rig renders nothing.
+    # K1's rows: 1,024 a train step; a 100x100 render in chunks of 8,192,
+    # the last edge-padded.
+    chunks = -(-100 * 100 // 8192)
+    train, render = [1024], [8192]
+    runs = ((distortion_discovery, None, 0, []),
+            (calibration_ablation, EXAMPLE_STEPS, 2 * EXAMPLE_STEPS + 2 * 2 * chunks,
+             train + render),
+            (self_calibration_demo, EXAMPLE_STEPS, EXAMPLE_STEPS, train),
+            (from_scratch_calibration, EXAMPLE_STEPS, EXAMPLE_STEPS + chunks, train + render))
+    for module, steps, want_launches, want_rows in runs:
+        name = module.__name__.rsplit(".", 1)[-1]
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        out = io.StringIO()
+        resamples = {}
+        with contextlib.redirect_stdout(out), first_resamples(resamples):
+            got = module.main(steps=steps, device=dev)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        k1 = launch_counts()["K1"]
+        relay(out.getvalue())
+        outcome = {k: v for k, v in got.items() if k != "curve"}
+        print(f"  {name}: {json.dumps(outcome)}; K1 {k1}; {seconds:.1f} s ({card})")
+        require(k1 == want_launches, f"{name}: K1 launched {k1} times, want {want_launches}")
+        require(sorted(s[0][0] for s in resamples) == sorted(want_rows),
+                f"{name}: K1's rows at the shapes seen {list(resamples)}, want {want_rows}")
+        k1_errs = []
+        for shapes, (bins, weights, u, depths) in resamples.items():
+            want = pdf_cuda.sample_pdf_plain(bins, weights, u)
+            what = f"{name}: K1 at {shapes}"
+            # The evaluation's deterministic u ends at exactly 1.0: there the
+            # sample lands on the last edge or, when cdf[-1] rounds above 1,
+            # near the one before, and the kernel's running sum and
+            # torch.cumsum round apart on a few percent of rays.
+            ends_at_one = bool((u[:, -1] == 1.0).all())
+            cols = slice(None, -1) if ends_at_one else slice(None)
+            med, mx, flips = check_resample(depths[:, cols], want[:, cols], bins, what)
+            k1_errs.append(mx)
+            print(f"  {what}: median|err|={med:.3e} max|err|={mx:.3e} share>1e-4={flips:.2e} "
+                  f"against its plain twin" + (" on the samples with u < 1" if ends_at_one else ""))
+            if ends_at_one:
+                lo, hi = bins[:, -2] - 1e-5, bins[:, -1] + 1e-5
+                for x in (depths[:, -1], want[:, -1]):
+                    require(bool(((x >= lo) & (x <= hi)).all()),
+                            f"{what}: a sample at u = 1 outside the last bin")
+                moved = float(((depths[:, -1] - want[:, -1]).abs() > 1e-4).float().mean())
+                print(f"  {what}: the samples at u = 1 within the last bin, {moved:.2%} of rays "
+                      f"on the other end of it than the twin's")
+        require(_common.all_finite(outcome), f"{name}: not finite: {outcome}")
+        if module is distortion_discovery:
+            require(got["k_err_final"] < got["k_err_initial"]
+                    and got["prd_final"] < got["prd_initial"],
+                    f"{name}: k error {got['k_err_initial']} -> {got['k_err_final']}, PRD "
+                    f"{got['prd_initial']} -> {got['prd_final']}")
+        else:
+            arms = [got["with_camera"], got["without_camera"]] \
+                if module is calibration_ablation else [got]
+            for arm in arms:
+                require(arm["loss_last"] < arm["loss_first"],
+                        f"{name}: loss {arm['loss_first']} -> {arm['loss_last']}")
+        record[name] = dict(outcome, launches=k1, seconds=seconds,
+                            k1_max_abs_err=max(k1_errs, default=None))
+    seconds = time.perf_counter() - started
+    print(f"  phase 28: {seconds:.1f} s")
+    return dict(examples=record, phase28_s=seconds)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on an NVIDIA card",
@@ -4168,6 +4477,10 @@ def main() -> int:
     export_record.update(phase_native(card))
     export_record.update(phase_distributed(dev, card))
 
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ablation_") as root:
+        experiment_record = phase_ablation(dev, card, root)
+    experiment_record.update(phase_examples(dev, card))
+
     seconds = time.perf_counter() - started
     print(f"chip_smoke: {seconds:.1f} s in all, the kernels' build included")
     print(json.dumps({"kernels": [{
@@ -4183,6 +4496,10 @@ def main() -> int:
         "superglue_driver_launches": match_record["driver_launches"],
         "render_cli_launches": truck_record["render_cli_k1_launches"],
         "export_launches": export_record["export_k1_launches"],
+        "ablation_launches": {name: row["launches"]
+                              for name, row in experiment_record["ablation"].items()},
+        "examples_launches": {name: ex["launches"]
+                              for name, ex in experiment_record["examples"].items()},
         **record,
     }, {
         "name": "sample_pdf_nerfpp",
@@ -4219,6 +4536,7 @@ def main() -> int:
                   **driver_record, **truck_record},
         "matching": match_record,
         "runtime": export_record,
+        "experiments": experiment_record,
         "seconds": seconds}))
     print(card)
     print(json.dumps({"ok": True, "device": {

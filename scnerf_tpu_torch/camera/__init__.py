@@ -1,7 +1,7 @@
 from scnerf_tpu_torch.camera.model import (
     CAMERA_LEAVES, FROZEN_LEAVES, OPENCV, OPENGL, TRAINABLE_LEAVES, Camera,
     CameraConfig, camera_leaves, get_distortion, get_extrinsic, get_extrinsics,
-    get_intrinsic, init_camera, ray_d_noise_at, ray_o_noise_at,
+    get_intrinsic, host_camera, init_camera, ray_d_noise_at, ray_o_noise_at,
     sample_noise_grid, trainable_camera,
 )
 from scnerf_tpu_torch.camera.rays import (

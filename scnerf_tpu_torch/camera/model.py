@@ -133,6 +133,12 @@ def camera_leaves(camera: Camera) -> dict[str, torch.Tensor]:
     return {name: getattr(camera, name) for name in CAMERA_LEAVES}
 
 
+def host_camera(camera: Camera) -> Camera:
+    """A detached copy of ``camera`` on the CPU."""
+    return dataclasses.replace(camera, **{
+        name: x.detach().cpu() for name, x in camera_leaves(camera).items()})
+
+
 def trainable_camera(camera: Camera) -> Camera:
     """A copy of ``camera`` to train: the ``*_noise`` and ``*_grid`` leaves
     are new leaf tensors that require grad, the ``*_init`` leaves copies that

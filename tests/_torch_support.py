@@ -10,6 +10,8 @@
   test shows up by name as one failure instead of stalling the whole run
   until an outer time limit cuts it. No port test takes more than a few
   seconds alone.
+- :func:`one_thread`, an autouse fixture of module scope for modules of
+  many small CPU operators, which they import likewise.
 - :func:`interpret`, the one way these modules run a JAX function that
   reaches a Pallas TPU kernel.
 - :func:`jax_prd_distances_in_float64`, the JAX PRD evaluation with its
@@ -56,6 +58,20 @@ def hang_watchdog(request):
                                       file=_worker_stderr(request.config))
     yield
     faulthandler.cancel_dump_traceback_later()
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Torch's CPU ops on one thread in a module that imports this fixture:
+    its runs are many small operators, and under the suite's parallel
+    workers a thread pool a process oversubscribes the cores many times
+    over."""
+    import torch
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def interpret(fn):
