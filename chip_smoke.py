@@ -126,7 +126,7 @@ the JAX package. Phases, each of which exits non-zero when it fails:
     launched twice a step, once with the CDF; no call waits for the device.
     ms a step and train rays/s by CUDA events over 20 steps after 3, peak
     memory, the profile (K2's forward in the sample_pdf group, its backward
-    as the ``sample_pdf_diff_backward`` range), K2 held to its plain twin
+    as the ``scnerf.kernels.sample_pdf_diff_backward`` span), K2 held to its plain twin
     on the fg and bg inputs one step hands it (values, and the fg bins'
     gradient, with phase 5's limits) and its forward with the CDF and its
     backward timed by events on them; 30 steps on one fixed batch must
@@ -1204,7 +1204,8 @@ KERNEL_GROUPS = (  # (group, substrings of the kernel name), first match wins
 )
 
 
-PROFILE_RANGES = ("sample_pdf_diff_backward",)  # kernels/pdf_cuda.py's K2 backward
+K2_BACKWARD_SPAN = "scnerf.kernels.sample_pdf_diff_backward"  # kernels/pdf_cuda.py
+PROFILE_RANGES = (K2_BACKWARD_SPAN,)
 
 
 def profile_steps(run_step, state, n: int = TRAIN_PROFILED):
@@ -2017,9 +2018,9 @@ def phase_nerfpp_train(dev, card):
 
     state, profile = profile_steps(lambda s: step(s, gen), state)
     idle = print_profile(profile, ms)
-    backward = profile["ranges"].get("sample_pdf_diff_backward", (0.0, 0.0))
+    backward = profile["ranges"].get(K2_BACKWARD_SPAN, (0.0, 0.0))
     if backward[0] == 0.0:
-        print("  the profiler saw no sample_pdf_diff_backward range: K2's backward is timed "
+        print(f"  the profiler saw no {K2_BACKWARD_SPAN} range: K2's backward is timed "
               "by events below")
     state, sites = sync_sites(lambda s: step(s, gen), state)
     print(f"  calls that wait for the device in one step: {sites or 'none'}")

@@ -16,9 +16,10 @@ A NeRF++ train step (``train/nerfpp_step.py``, through
 fg resample through the autograd function, which saves the CDF (its bins
 come from the rays and require grad), and the bg resample forward only,
 without a CDF (its bins are uniforms that never require grad, and the
-weights are detached); the fg's backward runs once, under the profiler
-range ``"sample_pdf_diff_backward"``. ``diff_launches`` counts both
-launches, ``cdf_launches`` the ones that saved the CDF.
+weights are detached); the fg's backward runs once, in the span
+``"scnerf.kernels.sample_pdf_diff_backward"`` (``train/profiling.py``).
+``diff_launches`` counts both launches, ``cdf_launches`` the ones that saved
+the CDF.
 
 Both kernels are instantiations of one template in ``csrc/sample_pdf.cu``
 (one warp per ray, a binary search over the CDF; its header says what bounds
@@ -42,6 +43,7 @@ from torch.autograd.function import once_differentiable
 
 from scnerf_tpu_torch.kernels import _build
 from scnerf_tpu_torch.sampling.pdf import bracket, inverse_cdf, pdf_eps, sample_pdf
+from scnerf_tpu_torch.train.profiling import span
 
 MAX_BINS = 1024
 VARIANTS = ("nerf", "nerfpp")
@@ -232,7 +234,7 @@ class _SamplePdfDiff(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, g):
         bins, weights, u, inds, cdf = ctx.saved_tensors
-        with torch.profiler.record_function("sample_pdf_diff_backward"):
+        with span("scnerf.kernels.sample_pdf_diff_backward"):
             grads = sample_pdf_diff_backward(g, bins, weights, u, inds, cdf, ctx.variant)
         return (*(gr if need else None
                   for gr, need in zip(grads, ctx.needs_input_grad[:3])), None)

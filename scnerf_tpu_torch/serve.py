@@ -25,10 +25,14 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import io
+import itertools
 from typing import Callable, Sequence
 
 import numpy as np
 import torch
+
+from scnerf_tpu_torch.train.profiling import count, span
+
 
 def pad_edge(x: torch.Tensor, pad: int) -> torch.Tensor:
     """Append ``pad`` copies of the last row (``np.pad(mode="edge")`` on
@@ -255,6 +259,11 @@ class RenderService:
     ``all_gather`` hands every rank the whole result. A ``batch`` that the
     group's size does not divide raises ``ValueError``. The JAX service's
     ``cost_analysis`` is XLA's and has no counterpart.
+
+    While a profiler records, a call is the span ``scnerf.serve.request``
+    (numbered by the service), with ``upload``, ``slices`` and ``readback``
+    inside it, and adds the rays requested and the rays run, padding
+    included, to the counters ``serve.rays`` and ``serve.rays_run``.
     """
 
     def __init__(self, fn: Callable, batch: int, *, device: torch.device | str = "cuda",
@@ -272,6 +281,7 @@ class RenderService:
                 raise ValueError(f"batch {batch} not divisible by the group's size "
                                  f"{self.world}")
         self.share = batch // self.world
+        self._requests = itertools.count()
 
     def _gather(self, out: dict) -> dict:
         import torch.distributed as dist
@@ -290,13 +300,20 @@ class RenderService:
         b = self.batch
         n_slices = -(-n // b)
         pad = n_slices * b - n
-        padded = [
-            pad_edge(torch.as_tensor(x, dtype=torch.float32).to(self.device), pad)
-            for x in arrays
-        ]
-        lo = self.rank * self.share
-        outs = []
-        for i in range(n_slices):
-            out = self.fn(*(x[i * b + lo:i * b + lo + self.share] for x in padded))
-            outs.append(out if self.group is None else self._gather(out))
-        return {k: torch.cat([o[k] for o in outs])[:n].cpu().numpy() for k in outs[0]}
+        count("serve.rays", n)
+        count("serve.rays_run", n_slices * b)
+        with span("scnerf.serve.request", next(self._requests)):
+            with span("scnerf.serve.upload"):
+                padded = [
+                    pad_edge(torch.as_tensor(x, dtype=torch.float32).to(self.device), pad)
+                    for x in arrays
+                ]
+            lo = self.rank * self.share
+            outs = []
+            with span("scnerf.serve.slices"):
+                for i in range(n_slices):
+                    out = self.fn(*(x[i * b + lo:i * b + lo + self.share] for x in padded))
+                    outs.append(out if self.group is None else self._gather(out))
+            # The copy to the host waits for the card.
+            with span("scnerf.serve.readback"):
+                return {k: torch.cat([o[k] for o in outs])[:n].cpu().numpy() for k in outs[0]}

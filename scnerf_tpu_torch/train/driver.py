@@ -67,7 +67,7 @@ from scnerf_tpu_torch.train.curriculum import Curriculum, prd_cadence_at
 from scnerf_tpu_torch.train.device_sampling import make_device_sampling_step
 from scnerf_tpu_torch.train.logging_utils import MetricLogger
 from scnerf_tpu_torch.train.optim import Optimizer, named_leaves
-from scnerf_tpu_torch.train.profiling import StepTimer
+from scnerf_tpu_torch.train.profiling import StepTimer, span
 from scnerf_tpu_torch.train.step import (
     TrainConfig,
     TrainState,
@@ -115,6 +115,7 @@ class NerfExperiment:
     pixel_pool: PixelPool | None = None  # use_batching + camera
     device_step: Any | None = None  # (state, generator) step sampling on the device
     logger: MetricLogger | None = None
+    timer: StepTimer = dataclasses.field(default_factory=StepTimer)  # the loop's, across calls
 
 
 def step_generator(seed: int, it: int, device) -> torch.Generator:
@@ -131,21 +132,22 @@ def to_device(arrays: dict[str, np.ndarray], device) -> dict[str, torch.Tensor]:
     until the copy has run), and viewed back as each array's dtype and
     shape. On the CPU the tensors share the arrays' memory."""
     device = torch.device(device)
-    arrays = {k: np.asarray(v, order="C") for k, v in arrays.items()}
-    if device.type == "cpu":
-        return {k: torch.from_numpy(v) for k, v in arrays.items()}
-    offsets, total = {}, 0
-    for k, v in arrays.items():
-        offsets[k] = total
-        total += -(-v.nbytes // 8) * 8
-    host = torch.empty(total, dtype=torch.uint8, pin_memory=True)
-    flat = host.numpy()
-    for k, v in arrays.items():
-        flat[offsets[k]:offsets[k] + v.nbytes] = v.reshape(-1).view(np.uint8)
-    dev = host.to(device, non_blocking=True)
-    return {k: dev[offsets[k]:offsets[k] + v.nbytes]
-            .view(torch.from_numpy(np.empty(0, v.dtype)).dtype).reshape(v.shape)
-            for k, v in arrays.items()}
+    with span("scnerf.loop.to_device"):
+        arrays = {k: np.asarray(v, order="C") for k, v in arrays.items()}
+        if device.type == "cpu":
+            return {k: torch.from_numpy(v) for k, v in arrays.items()}
+        offsets, total = {}, 0
+        for k, v in arrays.items():
+            offsets[k] = total
+            total += -(-v.nbytes // 8) * 8
+        host = torch.empty(total, dtype=torch.uint8, pin_memory=True)
+        flat = host.numpy()
+        for k, v in arrays.items():
+            flat[offsets[k]:offsets[k] + v.nbytes] = v.reshape(-1).view(np.uint8)
+        dev = host.to(device, non_blocking=True)
+        return {k: dev[offsets[k]:offsets[k] + v.nbytes]
+                .view(torch.from_numpy(np.empty(0, v.dtype)).dtype).reshape(v.shape)
+                for k, v in arrays.items()}
 
 
 def _load_dataset(cfg: ExperimentConfig, rng):
@@ -416,21 +418,23 @@ def train_loop(
     cfg = exp.cfg
     n_steps = n_steps if n_steps is not None else cfg.optim.N_iters
     metrics = {}
-    timer = StepTimer()
     for it in range(exp.state.step, n_steps):
-        use_prd = (
-            exp.step_prd_fn is not None
-            and it >= exp.curriculum.add_prd
-            and it % prd_cadence_at(it, exp.curriculum) == 0
-        )
-        batch = (None if (not use_prd and exp.device_step is not None)
-                 else sample_batch(exp, it))
-        gen = step_generator(cfg.logging.seed, it, exp.device)
-        with timer:
+        with exp.timer(it):
+            use_prd = (
+                exp.step_prd_fn is not None
+                and it >= exp.curriculum.add_prd
+                and it % prd_cadence_at(it, exp.curriculum) == 0
+            )
+            batch = None
+            if use_prd or exp.device_step is None:
+                with span("scnerf.loop.draw"):
+                    batch = sample_batch(exp, it)
+            gen = step_generator(cfg.logging.seed, it, exp.device)
             if batch is None:
                 exp.state, metrics = exp.device_step(exp.state, gen)
             elif use_prd:
-                prd_batch = sample_prd_batch(exp)
+                with span("scnerf.loop.prd_draw"):
+                    prd_batch = sample_prd_batch(exp)
                 if prd_batch is not None and "px" in batch:
                     exp.state, metrics = exp.step_prd_fn(exp.state, dict(batch, **prd_batch), gen)
                 else:
@@ -438,15 +442,19 @@ def train_loop(
             else:
                 exp.state, metrics = exp.step_fn(exp.state, batch, gen)
 
-        step_now = it + 1
-        if exp.logger and step_now % cfg.logging.i_print == 0:
-            row = dict(metrics)
-            row.update(timer.summary())
-            exp.logger.log(step_now, row)
-        if ckpt_dir and step_now % cfg.logging.i_weights == 0:
-            save_checkpoint(ckpt_dir, exp.state, optim_meta=optim_knobs(cfg))
-        if eval_hooks and exp.logger:
-            _eval_hooks(exp, step_now)
+            step_now = it + 1
+            log = exp.logger and step_now % cfg.logging.i_print == 0
+            save = ckpt_dir and step_now % cfg.logging.i_weights == 0
+            hooks = eval_hooks and exp.logger
+            if log or save or hooks:
+                # The loop's only waits for the card.
+                with span("scnerf.loop.log"):
+                    if log:
+                        exp.logger.log(step_now, {**metrics, **exp.timer.summary()})
+                    if save:
+                        save_checkpoint(ckpt_dir, exp.state, optim_meta=optim_knobs(cfg))
+                    if hooks:
+                        _eval_hooks(exp, step_now)
     return exp.state, metrics
 
 

@@ -74,6 +74,7 @@ from scnerf_tpu_torch.train.driver import _psnr, step_generator, to_device
 from scnerf_tpu_torch.train.logging_utils import MetricLogger
 from scnerf_tpu_torch.train.nerfpp_step import NerfPPTrainConfig, make_nerfpp_train_step
 from scnerf_tpu_torch.train.optim import Optimizer, named_leaves
+from scnerf_tpu_torch.train.profiling import span
 from scnerf_tpu_torch.train.step import TrainState, create_train_state
 
 
@@ -317,47 +318,56 @@ def _loop(exp: NerfPPExperiment, expdir: str, n_steps: int):
     ckpt_dir = os.path.join(expdir, "ckpts")
     metrics = {}
     for it in range(exp.state.step, n_steps):
-        use_prd = (
-            exp.step_prd_fn is not None
-            and it >= exp.curriculum.add_prd
-            and it % prd_cadence_at(it, exp.curriculum) == 0
-            and exp.pair_list is not None and len(exp.pair_list) > 0
-        )
-        gen = step_generator(log.seed, it, exp.device)
-        if not use_prd and exp.device_step is not None:
-            exp.state, metrics = exp.device_step(exp.state, gen)
-        elif use_prd:
-            arrays = _host_batch(exp)
-            i, j = exp.pair_list[exp.rng.randint(0, len(exp.pair_list))]
-            m = exp.match_cache.get(int(i), int(j)) if exp.match_cache else None
-            if m is not None and m.kps0.shape[0] > 0:
-                kps0, kps1, mask = pad_matches(m, cfg.camera.match_num)
-                arrays.update(kps0=kps0, kps1=kps1, kp_mask=mask,
-                              pair_idx=np.array([int(i), int(j)], np.int64))
-                exp.state, metrics = exp.step_prd_fn(exp.state, _on_device(exp, arrays), gen)
+        with span("scnerf.loop.step", it):
+            use_prd = (
+                exp.step_prd_fn is not None
+                and it >= exp.curriculum.add_prd
+                and it % prd_cadence_at(it, exp.curriculum) == 0
+                and exp.pair_list is not None and len(exp.pair_list) > 0
+            )
+            gen = step_generator(log.seed, it, exp.device)
+            if not use_prd and exp.device_step is not None:
+                exp.state, metrics = exp.device_step(exp.state, gen)
+            elif use_prd:
+                with span("scnerf.loop.draw"):
+                    arrays = _host_batch(exp)
+                # The pair's matches go to the device in the batch's copy.
+                with span("scnerf.loop.prd_draw"):
+                    i, j = exp.pair_list[exp.rng.randint(0, len(exp.pair_list))]
+                    m = exp.match_cache.get(int(i), int(j)) if exp.match_cache else None
+                    prd = m is not None and m.kps0.shape[0] > 0
+                    if prd:
+                        kps0, kps1, mask = pad_matches(m, cfg.camera.match_num)
+                        arrays.update(kps0=kps0, kps1=kps1, kp_mask=mask,
+                                      pair_idx=np.array([int(i), int(j)], np.int64))
+                    batch = _on_device(exp, arrays)
+                step = exp.step_prd_fn if prd else exp.step_fn
+                exp.state, metrics = step(exp.state, batch, gen)
             else:
-                exp.state, metrics = exp.step_fn(exp.state, _on_device(exp, arrays), gen)
-        else:
-            exp.state, metrics = exp.step_fn(exp.state, nerfpp_sample_batch(exp), gen)
-        # The step counter on the host: reading the device every step would
-        # wait for it.
-        step_now = it + 1
-        if exp.logger and step_now % log.i_print == 0:
-            exp.logger.log(step_now, metrics)
-        if exp.logger and step_now % log.i_testset == 0:
-            # Held-out render metrics and PRD, the reference's test protocol
-            # run in the loop.
-            res = evaluate_nerfpp(exp, max_views=2)
-            res.update(evaluate_nerfpp_prd(exp))
-            exp.logger.log(step_now, {f"test/{k}": v for k, v in res.items()})
-        if exp.logger and step_now % log.i_img == 0:
-            _log_render_panel(exp, step_now)
-        if step_now % log.i_weights == 0:
-            save_checkpoint(ckpt_dir, exp.state, optim_meta=optim_knobs(cfg))
-        camera = exp.state.params.get("camera")
-        if exp.logger and step_now % log.camera_log == 0 and camera is not None:
-            exp.logger.log(step_now, camera_log_dict(camera, gt_K=exp.train_data.intrinsics[0]))
-            exp.logger.log_images(step_now, camera_log_images(camera))
+                with span("scnerf.loop.draw"):
+                    batch = nerfpp_sample_batch(exp)
+                exp.state, metrics = exp.step_fn(exp.state, batch, gen)
+            # The step counter on the host: reading the device every step would
+            # wait for it.
+            step_now = it + 1
+            with span("scnerf.loop.log"):
+                if exp.logger and step_now % log.i_print == 0:
+                    exp.logger.log(step_now, metrics)
+                if exp.logger and step_now % log.i_testset == 0:
+                    # Held-out render metrics and PRD, the reference's test protocol
+                    # run in the loop.
+                    res = evaluate_nerfpp(exp, max_views=2)
+                    res.update(evaluate_nerfpp_prd(exp))
+                    exp.logger.log(step_now, {f"test/{k}": v for k, v in res.items()})
+                if exp.logger and step_now % log.i_img == 0:
+                    _log_render_panel(exp, step_now)
+                if step_now % log.i_weights == 0:
+                    save_checkpoint(ckpt_dir, exp.state, optim_meta=optim_knobs(cfg))
+                camera = exp.state.params.get("camera")
+                if exp.logger and step_now % log.camera_log == 0 and camera is not None:
+                    exp.logger.log(step_now,
+                                   camera_log_dict(camera, gt_K=exp.train_data.intrinsics[0]))
+                    exp.logger.log_images(step_now, camera_log_images(camera))
     return exp.state, metrics
 
 

@@ -3,11 +3,13 @@
 Port of ``scnerf_tpu/train/profiling.py`` onto ``torch.profiler`` and
 autograd's anomaly mode:
 
-- :class:`StepTimer`: wall-clock time per step on the host, with a warm-up
-  skip and a percentile summary. The step returns before the device has run
-  it, so in a loop that never waits for the device a step's host time is its
-  dispatch, until the device's queue is full and the host waits at a launch:
-  the steady state then measures the device's pace.
+- :func:`span` and :func:`count`: the program's own spans and counters,
+  recorded only while a ``torch.profiler`` session records (:class:`Recorder`);
+  each span is also a ``record_function`` range on the profiler's clock, so
+  the trace names the host's time, and the kernels launched in it, by the
+  program's layer. :func:`spans` and :func:`counters` return what was kept.
+- :class:`StepTimer`: the host's time per loop iteration, with a warm-up
+  skip and a percentile summary; it opens the iteration's span.
 - :func:`trace`: ``torch.profiler`` over the CPU and the card, writing a
   Chrome trace (``*.pt.trace.json``) that TensorBoard and Perfetto open.
 - :func:`debug_nans`: scoped anomaly detection, and a check of every
@@ -23,44 +25,197 @@ autograd's anomaly mode:
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import os
+import threading
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 
-class StepTimer:
-    def __init__(self, warmup: int = 2):
-        self.warmup = warmup
-        self._times: list[float] = []
-        self._t0 = None
-        self._count = 0
+SPAN_CAPACITY = 65536
+STEP_SPAN = "scnerf.loop.step"
+_profiler_enabled = torch.autograd._profiler_enabled
+
+
+class SpanRecord(NamedTuple):
+    """One finished span: its name, the name of the span open around it on
+    the same thread (``None`` at the top), the step or request number that
+    the spans of one step or request share, and its ``perf_counter_ns``
+    readings."""
+
+    name: str
+    parent: str | None
+    id: int | None
+    start_ns: int
+    end_ns: int
+
+
+class _NullSpan:
+    """The span of a process that no profiler records: does nothing."""
+
+    __slots__ = ()
 
     def __enter__(self):
-        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        return False
+
+    def open(self, start_ns: int) -> None:
+        pass
+
+    def close(self, end_ns: int) -> None:
+        pass
+
+
+_NULL_SPAN = _NullSpan()
+
+
+class _Span:
+    __slots__ = ("recorder", "name", "id", "parent", "start_ns", "range")
+
+    def __init__(self, recorder: "Recorder", name: str, id: int | None):
+        self.recorder, self.name, self.id = recorder, name, id
+
+    def __enter__(self):
+        self.open(time.perf_counter_ns())
         return self
 
     def __exit__(self, *exc):
-        dt = time.perf_counter() - self._t0
+        self.close(time.perf_counter_ns())
+        return False
+
+    def open(self, start_ns: int) -> None:
+        stack = self.recorder._stack()
+        outer = stack[-1] if stack else None
+        self.parent = outer.name if outer is not None else None
+        if self.id is None and outer is not None:
+            self.id = outer.id
+        stack.append(self)
+        self.start_ns = start_ns
+        self.range = torch.profiler.record_function(self.name)
+        self.range.__enter__()
+
+    def close(self, end_ns: int) -> None:
+        self.range.__exit__(None, None, None)
+        self.recorder._stack().pop()
+        self.recorder._records.append(
+            SpanRecord(self.name, self.parent, self.id, self.start_ns, end_ns))
+
+
+class Recorder:
+    """Spans and counters, kept while a ``torch.profiler`` session records
+    and at no other time.
+
+    A span (:meth:`span`) opens a ``record_function`` range of its name,
+    which the profiler's trace shows as a ``user_annotation`` over the
+    host's operators, and keeps a :class:`SpanRecord` in a ring of the last
+    ``capacity``. A span without an ``id`` takes the one of the span open
+    around it on the same thread. Counters (:meth:`count`) are integer
+    totals. With no session recording, :meth:`span` returns a shared no-op
+    context and :meth:`count` returns: one check of the profiler's state
+    each."""
+
+    def __init__(self, capacity: int = SPAN_CAPACITY):
+        self._records: collections.deque[SpanRecord] = collections.deque(maxlen=capacity)
+        self._counts: dict[str, int] = {}
+        self._lock = threading.Lock()
+        self._local = threading.local()
+
+    def _stack(self) -> list[_Span]:
+        stack = getattr(self._local, "stack", None)
+        if stack is None:
+            stack = self._local.stack = []
+        return stack
+
+    def span(self, name: str, id: int | None = None):
+        """A context that records the block as the span ``name``
+        (``scnerf.<layer>.<what>``) of step or request ``id``."""
+        if not _profiler_enabled():
+            return _NULL_SPAN
+        return _Span(self, name, id)
+
+    def count(self, name: str, n: int) -> None:
+        """Add ``n`` to the counter ``name``."""
+        if _profiler_enabled():
+            with self._lock:
+                self._counts[name] = self._counts.get(name, 0) + n
+
+    def spans(self) -> list[SpanRecord]:
+        """The kept spans, in the order they ended."""
+        return list(self._records)
+
+    def counters(self) -> dict[str, int]:
+        """The counters' totals."""
+        with self._lock:
+            return dict(self._counts)
+
+    def clear(self) -> None:
+        """Drop the kept spans and the counters."""
+        self._records.clear()
+        with self._lock:
+            self._counts.clear()
+
+
+RECORDER = Recorder()
+span = RECORDER.span
+count = RECORDER.count
+spans = RECORDER.spans
+counters = RECORDER.counters
+
+
+class StepTimer:
+    """The host's milliseconds a loop iteration, with a warm-up skip and a
+    percentile summary. ``with timer(step):`` times one iteration and opens
+    its :data:`STEP_SPAN` span on the same ``perf_counter_ns`` readings.
+
+    It reads the host's pace: a step returns before the card has run it, so
+    an iteration's time is the host's draw, copy and launches, and it is
+    the card's pace only while the launch queue is full and the host waits
+    at a launch. Kept across calls of a loop, so that a loop called one
+    step at a time gets past its warm-up."""
+
+    def __init__(self, warmup: int = 2):
+        self.warmup = warmup
+        self._times_ns: list[int] = []
+        self._count = 0
+        self._t0 = 0
+        self._span = _NULL_SPAN
+
+    def __call__(self, step: int) -> "StepTimer":
+        self._span = span(STEP_SPAN, step)
+        return self
+
+    def __enter__(self):
+        self._t0 = time.perf_counter_ns()
+        self._span.open(self._t0)
+        return self
+
+    def __exit__(self, *exc):
+        t1 = time.perf_counter_ns()
+        self._span.close(t1)
+        self._span = _NULL_SPAN
         self._count += 1
         if self._count > self.warmup:
-            self._times.append(dt)
+            self._times_ns.append(t1 - self._t0)
         return False
 
     def summary(self) -> dict:
-        if not self._times:
+        if not self._times_ns:
             return {"steps": 0}
-        arr = np.asarray(self._times)
+        arr = np.asarray(self._times_ns, np.float64) * 1e-6
         return {
             "steps": len(arr),
-            "mean_ms": float(arr.mean() * 1e3),
-            "p50_ms": float(np.percentile(arr, 50) * 1e3),
-            "p95_ms": float(np.percentile(arr, 95) * 1e3),
-            "max_ms": float(arr.max() * 1e3),
+            "mean_ms": float(arr.mean()),
+            "p50_ms": float(np.percentile(arr, 50)),
+            "p95_ms": float(np.percentile(arr, 95)),
+            "max_ms": float(arr.max()),
         }
 
 

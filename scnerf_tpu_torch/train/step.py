@@ -29,6 +29,7 @@ from scnerf_tpu_torch.render.renderer import RenderConfig, render_rays
 from scnerf_tpu_torch.serve import fp32
 from scnerf_tpu_torch.train.curriculum import Curriculum, mask_camera_grads, prd_active
 from scnerf_tpu_torch.train.optim import OptState, Optimizer, apply_updates, trainable_leaves
+from scnerf_tpu_torch.train.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -128,25 +129,26 @@ def make_train_step(
             metrics["mse0"] = mse0
 
         if with_prd:
-            if camera is None:
-                raise ValueError("PRD needs the camera model")
-            kps0, kps1 = batch["kps0"], batch["kps1"]
-            # The pair's poses decoded once; indexing the camera with a 0-d
-            # device tensor would wait for the device.
-            E_pair = get_extrinsic(camera, batch["pair_idx"])
-            r0 = pixels_to_rays(camera, kps0[:, 0], kps0[:, 1], c2w=E_pair[0])
-            r1 = pixels_to_rays(camera, kps1[:, 0], kps1[:, 1], c2w=E_pair[1])
-            prd, n_match = prd_loss(
-                kps0, kps1, r0, r1, get_intrinsic(camera), E_pair,
-                mask=batch.get("kp_mask"), threshold=train_cfg.prd_threshold,
-                method=train_cfg.prd_method, mode="train",
-            )
-            # A pair with no valid match contributes nothing (the
-            # reference's NaN skip).
-            safe_prd = torch.where(n_match > 0, prd, prd.new_zeros(()))
-            loss = loss + prd_active(step, curriculum) * safe_prd
-            metrics["prd"] = safe_prd
-            metrics["prd_matches"] = n_match
+            with span("scnerf.step.prd"):
+                if camera is None:
+                    raise ValueError("PRD needs the camera model")
+                kps0, kps1 = batch["kps0"], batch["kps1"]
+                # The pair's poses decoded once; indexing the camera with a 0-d
+                # device tensor would wait for the device.
+                E_pair = get_extrinsic(camera, batch["pair_idx"])
+                r0 = pixels_to_rays(camera, kps0[:, 0], kps0[:, 1], c2w=E_pair[0])
+                r1 = pixels_to_rays(camera, kps1[:, 0], kps1[:, 1], c2w=E_pair[1])
+                prd, n_match = prd_loss(
+                    kps0, kps1, r0, r1, get_intrinsic(camera), E_pair,
+                    mask=batch.get("kp_mask"), threshold=train_cfg.prd_threshold,
+                    method=train_cfg.prd_method, mode="train",
+                )
+                # A pair with no valid match contributes nothing (the
+                # reference's NaN skip).
+                safe_prd = torch.where(n_match > 0, prd, prd.new_zeros(()))
+                loss = loss + prd_active(step, curriculum) * safe_prd
+                metrics["prd"] = safe_prd
+                metrics["prd_matches"] = n_match
         metrics["loss"] = loss
         return loss, metrics
 
@@ -175,13 +177,18 @@ def make_step_fn(loss_fn, curriculum: Curriculum, optimizer: Optimizer, *, group
         leaves = trainable_leaves(state.params)
         scope = contextlib.nullcontext() if group is None else reduce.data_parallel(group)
         with fp32(), scope:
-            loss, metrics = loss_fn(state.params, batch, generator, state.step)
-            grads = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()),
-                                                         allow_unused=True)))
+            with span("scnerf.step.forward"):
+                loss, metrics = loss_fn(state.params, batch, generator, state.step)
+            # The backward's kernels are launched from autograd's own thread
+            # on the card: this span names the host's time only.
+            with span("scnerf.step.backward"):
+                grads = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()),
+                                                             allow_unused=True)))
             if group is not None:
                 grads = reduce.all_reduce_grads(grads, group)
-            grads = mask_camera_grads(grads, state.step, curriculum)
-            apply_updates(leaves, optimizer.update(grads, state.opt_state, leaves))
+            with span("scnerf.step.optimizer"):
+                grads = mask_camera_grads(grads, state.step, curriculum)
+                apply_updates(leaves, optimizer.update(grads, state.opt_state, leaves))
         metrics = {k: v.detach() for k, v in metrics.items()}
         return dataclasses.replace(state, step=state.step + 1), metrics
 
