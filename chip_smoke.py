@@ -32,8 +32,10 @@ the JAX package. Phases, each of which exits non-zero when it fails:
    learnable OpenGL camera at 756x1008 with 10-px noise grids, the NDC warp
    with the learned focal, eval mode, behind a RenderService of batch 8192.
    Three requests: 1,000 random pixels, 65,536 random pixels and one full
-   image. Outputs must be finite, rgb and acc in [0, 1], shapes right, and
-   the kernel's launch count must cover every chunk served.
+   image. Outputs must be finite, rgb and acc in [0, 1], shapes right, K1's
+   launch count must cover every chunk served, and K3 must launch exactly
+   once a chunk (the serve function's fine field, its weights packed at the
+   build).
 4. The card against the CPU port: 1,024 of those rays through the same
    serve function on the CPU (which takes the plain twin): rgb median
    |err| < 1e-5 and max < 1e-3.
@@ -71,12 +73,14 @@ the JAX package. Phases, each of which exits non-zero when it fails:
 9. K3, the fused encoding + NeRF MLP CUDA kernel, on its own path, at the
    points the NeRF serving path queries: the coarse (8192, 64) and fine
    (8192, 128) points and view directions of one 8192-ray batch of phase 3,
-   recorded as the renderer hands them to ``query_field``, with phase 3's
-   coarse and fine weights, and a ragged (1027, 33) cut of the fine points.
-   Median |err| < 1e-5 and max < 2e-4 against the twin and against the raw
-   output the serving path computed, both in full float32. Time per call of
-   K3 (the wrapper's weight packing included), of the packing alone, of the
-   twin and of ``query_field``; K3's bound is its 3xTF32 operations on the
+   recorded as the renderer hands them to the serve function's field, with
+   phase 3's coarse and fine weights, and a ragged (1027, 33) cut of the
+   fine points. Median |err| < 1e-5 and max < 2e-4 against the twin and
+   against ``query_field``'s raw output on those points (the plain route),
+   both in full float32. Time per call of K3 as the serve function calls
+   it (``packed=``, the weights packed beforehand), of K3 packing on each
+   call (the wrapper without ``packed=``), of the packing alone, of the twin
+   and of ``query_field``; K3's bound is its 3xTF32 operations on the
    tensor cores (three TF32 passes at 495 TFLOP/s), printed beside the
    float32 CUDA-core bound, and its rate counts the useful float32
    operations (2 per multiply-add of the MLP).
@@ -318,6 +322,7 @@ from __future__ import annotations
 import concurrent.futures
 import contextlib
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -642,7 +647,7 @@ def phase_slice(dev, card, slice_):
         seconds = time.perf_counter() - t0
         rates[name] = rays_o.shape[0] / seconds
     counts = launch_counts()
-    launches = counts["K1"]
+    launches, field_launches = counts["K1"], counts["K3"]
     print(f"  launches on the NeRF path: {counts}")
 
     chunks = 0
@@ -660,9 +665,12 @@ def phase_slice(dev, card, slice_):
                 f"{name}: acc outside [0, 1]")
         print(f"  {name}: {n} rays, {rates[name]:.1f} rays/s ({card}); "
               f"rgb mean {out['rgb'].mean():.4f}, acc mean {out['acc'].mean():.4f}")
-    print(f"  pdf_cuda.launches={launches} over {chunks} chunks served")
+    print(f"  pdf_cuda.launches={launches}, mlp_cuda.launches={field_launches} over {chunks} "
+          f"chunks served")
     require(launches >= chunks, f"K1 launched {launches} times for {chunks} chunks")
-    return requests, outputs, launches
+    require(field_launches == chunks,
+            f"K3 launched {field_launches} times for {chunks} chunks (one fine field a chunk)")
+    return requests, outputs, launches, field_launches
 
 
 def phase_cpu_agreement(slice_, requests, outputs):
@@ -1010,27 +1018,28 @@ def phase_k4(dev):
 
 def record_field_queries(dev, slice_, requests):
     """The coarse and fine field queries of one 8192-ray batch of phase 3's
-    65,536-pixel request, as ``render_rays`` hands them to ``query_field``,
-    each with the raw output the serving path computed."""
-    from scnerf_tpu_torch.render import renderer
-    from scnerf_tpu_torch.serve import make_nerf_serve_fn
+    65,536-pixel request, as ``render_rays`` hands them to the serve
+    function's field, each with the raw output of ``query_field`` (the
+    plain route, which the serving path takes off the card)."""
+    from scnerf_tpu_torch import serve
+    from scnerf_tpu_torch.fields.nerf import query_field
 
     model_cfg, render_cfg, params, _, ndc = slice_
     rays_o, rays_d = (x[:BATCH] for x in requests["65536_pixels"])
     queries = []
-    query_field = renderer.query_field
 
     def recording(p, cfg, pts, viewdirs=None):
         raw = query_field(p, cfg, pts, viewdirs)
         queries.append(dict(params=p, pts=pts, viewdirs=viewdirs, raw=raw))
         return raw
 
-    renderer.query_field = recording
+    field_query = serve.nerf_field_query
+    serve.nerf_field_query = lambda params, cfg: recording
     try:
-        make_nerf_serve_fn(params, model_cfg, render_cfg, ndc=ndc)(
+        serve.make_nerf_serve_fn(params, model_cfg, render_cfg, ndc=ndc)(
             rays_o, rays_d, torch.zeros(BATCH, device=dev), torch.ones(BATCH, device=dev))
     finally:
-        renderer.query_field = query_field
+        serve.nerf_field_query = field_query
     shapes = [tuple(q["pts"].shape) for q in queries]
     require(shapes == [(BATCH, 64, 3), (BATCH, 128, 3)], f"recorded field queries {shapes}")
     return queries
@@ -1083,7 +1092,9 @@ def phase_k3(model_cfg, queries):
             with fp32_inference():
                 return per_call_ms(lambda: fn(*args), calls=K3_TIMING_CALLS, repeats=3)
 
-        ms = timed(mlp_cuda.fused_query_field)
+        packed = mlp_cuda.pack_weights(q["params"], model_cfg)[0]
+        ms = timed(functools.partial(mlp_cuda.fused_query_field, packed=packed))
+        unpacked_ms = timed(mlp_cuda.fused_query_field)
         pack_ms = per_call_ms(lambda: mlp_cuda.pack_weights(q["params"], model_cfg),
                               repeats=3)
         plain_ms = timed(mlp_cuda.fused_query_field_plain)
@@ -1099,7 +1110,8 @@ def phase_k3(model_cfg, queries):
                        + sum(x.numel() for x in weights) + got.numel())
         bnd = bound(n_bytes, 3 * flop, TF32_FLOP_PER_S)
         fp32_simt_ms = bound(n_bytes, flop)["bound_ms"]
-        print(f"  {name}: {macs} MAC/point; kernel_ms={ms:.3f} (packing {pack_ms:.3f} of it) "
+        print(f"  {name}: {macs} MAC/point; kernel_ms={ms:.3f} (weights packed beforehand; "
+              f"{unpacked_ms:.3f} packing on each call, the packing alone {pack_ms:.3f}) "
               f"plain_ms={plain_ms:.3f} query_field_ms={query_field_ms:.3f} "
               f"bound_ms={bnd['bound_ms']:.3f} (3xTF32 on the tensor cores; "
               f"{bnd['bound_ms'] / ms:.1%} of it) bound_fp32_simt_ms={fp32_simt_ms:.3f}; "
@@ -1111,6 +1123,7 @@ def phase_k3(model_cfg, queries):
                           plain_ms=plain_ms, query_field_ms=query_field_ms, **bnd,
                           bound_unit="3xTF32 on tensor cores: 3 passes at 495 TFLOP/s",
                           bound_fp32_simt_ms=fp32_simt_ms, pack_ms=pack_ms,
+                          unpacked_ms=unpacked_ms,
                           useful_tflops=flop / ms / 1e9, library_ms=None)
     return record, launches
 
@@ -4412,7 +4425,8 @@ def main() -> int:
     print(f"  built {', '.join(lib.name for lib in libs)} in {time.perf_counter() - t0:.2f} s")
     routes = {"K1, K2": ("registered operators torch.ops.scnerf_tpu_torch.sample_pdf[_fwd]",
                          _build.ops_library_path("sample_pdf")),
-              "K3": ("ctypes", _build.library_path("fused_mlp")),
+              "K3": ("registered operator torch.ops.scnerf_tpu_torch.fused_query_field over "
+                     "ctypes", _build.library_path("fused_mlp")),
               "K4": ("ctypes", _build.library_path("searchsorted"))}
     for kernels, (route, lib) in routes.items():
         print(f"  {kernels}: {route}, {lib}")
@@ -4425,7 +4439,7 @@ def main() -> int:
 
     record = phase_kernels(dev)
     slice_ = make_slice(dev)
-    requests, outputs, launches = phase_slice(dev, card, slice_)
+    requests, outputs, launches, serve_field_launches = phase_slice(dev, card, slice_)
     phase_cpu_agreement(slice_, requests, outputs)
     queries = record_field_queries(dev, slice_, requests)
     model_cfg = slice_[0]
@@ -4528,10 +4542,11 @@ def main() -> int:
     }, {
         "name": "fused_query_field",
         "route": "cuda",
-        "host_route": "ctypes",
+        "host_route": "operator over ctypes",
         "source": "scnerf_tpu_torch/csrc/fused_mlp.cu",
         "replaces": "scnerf_tpu/kernels/mlp_pallas.py:85",
         "launches": field_launches,
+        "serve_launches": serve_field_launches,
         **field_record,
     }], "train": {**train_record, **prd_record, **pp_train_record, **fisheye_record,
                   **driver_record, **truck_record},

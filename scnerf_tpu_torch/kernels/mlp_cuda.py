@@ -12,21 +12,35 @@ Plain twin: :func:`fused_query_field_plain`, which is
 The kernel is ``csrc/fused_mlp.cu``: a 64-point tile per block of two
 warpgroups, activations in shared memory, the trunk, feature and views
 products on the tensor cores (``wgmma``) in 3xTF32 (its header says what
-bounds it and why 3xTF32). On each call the wrapper packs the weights for
-it (:func:`pack_weights`). The tensor's device decides the route: a CUDA
-tensor goes to the kernel or raises, a CPU tensor takes the twin. A config
-the kernel does not compute raises on every device. Like the JAX kernel, it
-is wired into no render or serve path.
+bounds it and why 3xTF32). It reads the weights as one buffer that
+:func:`pack_weights` lays out; a caller that serves one model many times
+packs once (:class:`PackedWeights`) and passes the buffer as ``packed=``.
+The launch is the registered operator
+``torch.ops.scnerf_tpu_torch.fused_query_field``, defined here at import
+with a fake (shape-only) implementation so that ``torch.export`` keeps it
+in a program; its CUDA implementation launches the plain-C library on the
+current stream through ctypes (``_build.launch``). The tensor's device
+decides the route: a CUDA tensor goes to the kernel or raises, a CPU tensor
+takes the twin. A config the kernel does not compute raises on every device.
+``serve.py:nerf_field_query`` routes the NeRF serve function's fine field
+through it where :func:`serves` holds.
+
+The module imports none of the model code (``fields``), so that a loaded
+serving artifact that calls the operator needs only torch and this file.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import TYPE_CHECKING
 
 import torch
 
-from scnerf_tpu_torch.fields.nerf import NeRFConfig, query_field
 from scnerf_tpu_torch.kernels import _build
+from scnerf_tpu_torch.kernels.pdf_cuda import OPS_NAMESPACE
+
+if TYPE_CHECKING:
+    from scnerf_tpu_torch.fields.nerf import NeRFConfig
 
 # The encodings' frequency counts the kernel's activation buffer holds.
 MAX_FREQS = 16
@@ -34,10 +48,47 @@ HEADS = ("feature", "alpha", "views", "rgb")
 # The kernel's K-slices are 32 or 16 rows deep: every tensor-core layer's K
 # is padded to a multiple of 32.
 K_ALIGN = 32
+# The one MLP the kernel computes (:func:`supports_config`).
+DEPTH, WIDTH, SKIPS = 8, 256, (4,)
 
-# Kernel launches in this process; the wrapper adds one per launch and
-# nowhere else.
+# Kernel launches in this process; the operator's CUDA implementation adds
+# one per launch and nowhere else, so launches inside a loaded serving
+# artifact count too.
 launches = 0
+
+# The operator's schema, in the namespace whose "DEF" ``pdf_cuda.py`` holds
+# (a second "DEF" of it would fail).
+_LIB = torch.library.Library(OPS_NAMESPACE, "FRAGMENT")
+_LIB.define("fused_query_field(Tensor pts, Tensor viewdirs, Tensor packed, int multires, "
+            "int multires_views) -> Tensor")
+
+
+@torch.library.register_fake(f"{OPS_NAMESPACE}::fused_query_field", lib=_LIB)
+def _fused_query_field_fake(pts, viewdirs, packed, multires, multires_views):
+    return pts.new_empty((pts.shape[0], pts.shape[1], 4), dtype=torch.float32)
+
+
+def _fused_query_field_cuda(pts, viewdirs, packed, multires, multires_views):
+    """The operator on the card: the kernel launched on the current stream,
+    not synchronised, on contiguous float32 operands of one device, checked
+    here (every route, a loaded artifact's included, passes through)."""
+    global launches
+    _check_operands(pts, viewdirs, multires, multires_views, packed)
+    if not all(x.is_contiguous() for x in (pts, viewdirs, packed)):
+        raise ValueError("fused_query_field needs contiguous points, view directions and weights")
+    n, s, _ = pts.shape
+    out = torch.empty((n, s, 4), dtype=torch.float32, device=pts.device)
+    if out.numel() == 0:
+        return out
+    err = _build.launch(_entry(), pts.get_device(), pts.data_ptr(), viewdirs.data_ptr(),
+                        packed.data_ptr(), out.data_ptr(), n * s, s, multires, multires_views)
+    if err != 0:
+        raise RuntimeError(f"fused_query_field kernel launch failed: CUDA error {err}")
+    launches += 1
+    return out
+
+
+_LIB.impl("fused_query_field", _fused_query_field_cuda, "CUDA")
 
 
 @functools.cache
@@ -62,19 +113,55 @@ def shared_memory_bytes(cfg: NeRFConfig) -> int:
 
 def supports_config(cfg: NeRFConfig) -> bool:
     """The JAX kernel's configs: depth 8, width 256, skips (4,), viewdirs."""
-    return cfg.depth == 8 and cfg.width == 256 and tuple(cfg.skips) == (4,) and cfg.use_viewdirs
+    return (cfg.depth == DEPTH and cfg.width == WIDTH and tuple(cfg.skips) == SKIPS
+            and cfg.use_viewdirs)
+
+
+def serves(cfg: NeRFConfig, device: torch.device, dtype: torch.dtype) -> bool:
+    """Whether K3 computes the field of ``cfg`` for weights of ``dtype`` on
+    ``device``: a CUDA device, float32, a supported config and frequency
+    counts the kernel holds."""
+    return (torch.device(device).type == "cuda" and dtype == torch.float32
+            and supports_config(cfg) and 0 <= cfg.multires <= MAX_FREQS
+            and 0 <= cfg.multires_views <= MAX_FREQS)
 
 
 def _layers(params: dict) -> list[dict]:
     return [*params["pts"], *(params[name] for name in HEADS)]
 
 
-def _expected_shapes(cfg: NeRFConfig) -> list[tuple[int, int]]:
-    """``(in, out)`` of each layer, in :func:`_layers`' order."""
-    pe, ve, w = cfg.pos_encoding.out_dim, cfg.view_encoding.out_dim, cfg.width
-    trunk = [(pe if i == 0 else w + pe if i - 1 in cfg.skips else w, w)
-             for i in range(cfg.depth)]
+def _encoded(n_freqs: int) -> int:
+    """An encoding's width: the raw 3 and a sin and a cos of each per
+    frequency (``fields/encoding.py``, ``include_input``)."""
+    return 3 + 6 * n_freqs
+
+
+def _expected_shapes(multires: int, multires_views: int) -> list[tuple[int, int]]:
+    """``(in, out)`` of each layer of the MLP the kernel computes, in
+    :func:`_layers`' order."""
+    pe, ve, w = _encoded(multires), _encoded(multires_views), WIDTH
+    trunk = [(pe if i == 0 else w + pe if i - 1 in SKIPS else w, w) for i in range(DEPTH)]
     return trunk + [(w, w), (w, 1), (w + ve, w // 2), (w // 2, 3)]
+
+
+def layout(multires: int, multires_views: int) -> dict:
+    """:func:`pack_weights`' buffer at these frequency counts, in floats, as
+    ``csrc/fused_mlp.cu:make_layout`` lays it out: ``"layers"``, the offset
+    of each tensor-core layer (trunk 0-7, feature, views; big and small
+    halves, K padded to :data:`K_ALIGN`), then ``"bias"``, ``"alpha_w"``,
+    ``"rgb_w"`` and the buffer's ``"length"``."""
+    pe, ve = _encoded(multires), _encoded(multires_views)
+    shapes = _expected_shapes(multires, multires_views)
+    offsets, at = [], 0
+    for i, (k, n) in enumerate([*shapes[:DEPTH + 1], shapes[DEPTH + 2]]):
+        pad = (_pad_k(ve) - ve if i == DEPTH + 1
+               else _pad_k(pe) - pe if i == 0 or i - 1 in SKIPS else 0)
+        offsets.append(at)
+        at += 2 * (k + pad) * n
+    (alpha_k, alpha_n), (rgb_k, rgb_n) = shapes[DEPTH + 1], shapes[DEPTH + 3]
+    bias = at + sum(n for _, n in shapes)
+    return {"layers": offsets, "bias": at, "alpha_w": bias, "rgb_w": bias + alpha_k * alpha_n,
+            "length": bias + alpha_k * alpha_n + rgb_k * rgb_n}
 
 
 def split_tf32(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -119,18 +206,21 @@ def pack_weights(params: dict, cfg: NeRFConfig) -> tuple[torch.Tensor, dict]:
       ve in views), split by :func:`split_tf32` and laid out by
       :func:`_tiles`; one contiguous stream of k8 steps;
     - ``"bias"``: the biases of trunk 0-7, feature, views, alpha, rgb;
-    - ``"alpha_w"`` (256) and ``"rgb_w"`` (128 x 3, row-major), float32.
+    - ``"alpha_w"`` (256) and ``"rgb_w"`` (128 x 3, row-major), float32;
+    - ``"length"``, the buffer's (:func:`layout`).
 
-    Plain PyTorch, on every call (no cache keyed on the tensors): one
-    concatenation, the split, and one permuting copy for the trunk and
-    feature layers (all 256 wide) and one for views.
+    Plain PyTorch: one concatenation, the split, and one permuting copy for
+    the trunk and feature layers (all 256 wide) and one for views. No cache
+    here: :func:`fused_query_field` packs on each call that is not given
+    ``packed=``, and :class:`PackedWeights` keeps a buffer across calls.
     """
     pe, ve, width = cfg.pos_encoding.out_dim, cfg.view_encoding.out_dim, cfg.width
     pe_pad, ve_pad = _pad_k(pe), _pad_k(ve)
+    table = layout(cfg.multires, cfg.multires_views)
     trunk = params["pts"]
     zeros = trunk[0]["w"].new_zeros(max(pe_pad - pe, ve_pad - ve) * width)
     pad_pe, pad_ve = zeros[:(pe_pad - pe) * width], zeros[:(ve_pad - ve) * width // 2]
-    rows, offsets, at = [], [], 0  # (in, out) weights, flat, K rows in the kernel's order
+    rows = []  # (in, out) weights, flat, K rows in the kernel's order
     for i, layer in enumerate([*trunk, params["feature"], params["views"]]):
         w = layer["w"]
         if i == 0:
@@ -142,85 +232,125 @@ def pack_weights(params: dict, cfg: NeRFConfig) -> tuple[torch.Tensor, dict]:
         else:
             parts = [w.reshape(-1)]
         rows += parts
-        offsets.append(at)
-        at += 2 * sum(p.numel() for p in parts)
     big, small = split_tf32(torch.cat(rows))
     halves = torch.stack([big, small]).view(2, -1)
-    n_wide = offsets[-1] // 2  # floats of the 256-wide layers, one half
+    n_wide = table["layers"][-1] // 2  # floats of the 256-wide layers, one half
     biases = [layer["b"] for layer in trunk] + [params[h]["b"] for h in ("feature", "views",
                                                                          "alpha", "rgb")]
     tail = torch.cat([*biases, params["alpha"]["w"].reshape(-1), params["rgb"]["w"].reshape(-1)])
     packed = torch.cat([_tiles(halves[:, :n_wide].view(2, -1, width), width),
                         _tiles(halves[:, n_wide:].view(2, -1, width // 2), width // 2), tail])
-    n_bias = sum(b.numel() for b in biases)
-    table = {"layers": offsets, "bias": at, "alpha_w": at + n_bias,
-             "rgb_w": at + n_bias + width}
     return packed, table
 
 
-def _check(params: dict, cfg: NeRFConfig, pts: torch.Tensor, viewdirs: torch.Tensor) -> None:
-    if not supports_config(cfg):
-        raise ValueError(
-            "fused_query_field computes depth 8, width 256, skips (4,) with viewdirs; "
-            f"got depth={cfg.depth}, width={cfg.width}, skips={tuple(cfg.skips)}, "
-            f"use_viewdirs={cfg.use_viewdirs}")
-    for name, f in (("multires", cfg.multires), ("multires_views", cfg.multires_views)):
+def _check_operands(pts: torch.Tensor, viewdirs: torch.Tensor, multires: int,
+                    multires_views: int, weights: torch.Tensor | list[torch.Tensor]) -> None:
+    """Raise on operands the kernel does not take: frequency counts past
+    :data:`MAX_FREQS`, points not ``(N, S, 3)``, view directions not
+    ``(N, 3)``, a buffer ``weights`` not of :func:`layout`'s length, or
+    points, view directions and ``weights`` (the buffer, or a list of the
+    unpacked leaves) not all float32 on one device."""
+    for name, f in (("multires", multires), ("multires_views", multires_views)):
         if not 0 <= f <= MAX_FREQS:
             raise ValueError(f"fused_query_field takes 0 <= {name} <= {MAX_FREQS}, got {f}")
     if pts.ndim != 3 or pts.shape[-1] != 3:
         raise ValueError(f"pts must be (N, S, 3), got {tuple(pts.shape)}")
     if viewdirs.shape != (pts.shape[0], 3):
         raise ValueError(f"viewdirs must be ({pts.shape[0]}, 3), got {tuple(viewdirs.shape)}")
-    layers = _layers(params)
-    for i, (layer, (k, n)) in enumerate(zip(layers, _expected_shapes(cfg))):
-        if layer["w"].shape != (k, n) or layer["b"].shape != (n,):
-            raise ValueError(f"layer {i}: expected w {(k, n)} and b {(n,)}, got "
-                             f"{tuple(layer['w'].shape)} and {tuple(layer['b'].shape)}")
-    tensors = [pts, viewdirs, *(x for layer in layers for x in (layer["w"], layer["b"]))]
+    if isinstance(weights, torch.Tensor):
+        want = layout(multires, multires_views)["length"]
+        if weights.shape != (want,):
+            raise ValueError(f"packed must be pack_weights' ({want},) buffer for multires "
+                             f"{multires} and multires_views {multires_views}, got "
+                             f"{tuple(weights.shape)}")
+        weights = [weights]
+    tensors = [pts, viewdirs, *weights]
     for x in tensors:
         if x.dtype != torch.float32:
             raise TypeError(f"fused_query_field takes float32 only, got {x.dtype}")
     devices = {x.device for x in tensors}
     if len(devices) != 1:
         raise ValueError(f"points, view directions and weights lie on different devices: {devices}")
-    if torch.is_grad_enabled() and any(x.requires_grad for x in tensors):
-        raise ValueError("fused_query_field is forward only; call it under torch.no_grad()")
 
 
 def fused_query_field_plain(params: dict, cfg: NeRFConfig, pts: torch.Tensor,
                             viewdirs: torch.Tensor) -> torch.Tensor:
     """K3's plain PyTorch twin, on any device: ``query_field``."""
+    from scnerf_tpu_torch.fields.nerf import query_field
+
     return query_field(params, cfg, pts, viewdirs)
 
 
-def fused_query_field(params: dict, cfg: NeRFConfig, pts: torch.Tensor,
-                      viewdirs: torch.Tensor) -> torch.Tensor:
+def fused_query_field(params: dict | None, cfg: NeRFConfig, pts: torch.Tensor,
+                      viewdirs: torch.Tensor, *, packed: torch.Tensor | None = None
+                      ) -> torch.Tensor:
     """K3: encode ``pts (N, S, 3)`` and ``viewdirs (N, 3)`` and run the MLP
     ``params`` (the JAX ``(in, out)`` layout) -> raw ``(N, S, 4)``.
 
-    On CUDA: the weights packed by :func:`pack_weights`, the kernel launched
-    on the current stream, not synchronised; every tensor contiguous. The
-    twin's values at float32 accuracy (3xTF32 products, another summation
-    order).
+    On CUDA: ``torch.ops.scnerf_tpu_torch.fused_query_field`` on the
+    weights packed by :func:`pack_weights`, launched on the current stream,
+    not synchronised; every tensor contiguous (the operator checks its
+    operands). The twin's values at float32
+    accuracy (3xTF32 products, another summation order). ``packed``, where
+    given, is that buffer, packed by the caller: the call then skips
+    :func:`pack_weights` and checks the buffer's length (its contents are
+    the caller's); the CPU route still reads ``params``.
     """
-    global launches
-    _check(params, cfg, pts, viewdirs)
+    if not supports_config(cfg):
+        raise ValueError(
+            "fused_query_field computes depth 8, width 256, skips (4,) with viewdirs; "
+            f"got depth={cfg.depth}, width={cfg.width}, skips={tuple(cfg.skips)}, "
+            f"use_viewdirs={cfg.use_viewdirs}")
+    if packed is None:
+        layers = _layers(params)
+        shapes = _expected_shapes(cfg.multires, cfg.multires_views)
+        for i, (layer, (k, n)) in enumerate(zip(layers, shapes)):
+            if layer["w"].shape != (k, n) or layer["b"].shape != (n,):
+                raise ValueError(f"layer {i}: expected w {(k, n)} and b {(n,)}, got "
+                                 f"{tuple(layer['w'].shape)} and {tuple(layer['b'].shape)}")
+        weights = [x for layer in layers for x in (layer["w"], layer["b"])]
+    else:
+        weights = [packed]
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (pts, viewdirs, *weights)):
+        raise ValueError("fused_query_field is forward only; call it under torch.no_grad()")
+    if pts.device.type == "cpu" or packed is None:
+        # What does not reach the operator, which checks its own operands:
+        # the CPU route's, and the leaves before they are packed.
+        _check_operands(pts, viewdirs, cfg.multires, cfg.multires_views,
+                        weights if packed is None else packed)
     if pts.device.type == "cpu":
         return fused_query_field_plain(params, cfg, pts, viewdirs)
     if pts.device.type != "cuda":
         raise ValueError(f"fused_query_field runs on cpu or cuda, not {pts.device}")
-    for x in (pts, viewdirs, *(t for layer in _layers(params) for t in (layer["w"], layer["b"]))):
-        if not x.is_contiguous():
-            raise ValueError("fused_query_field needs contiguous points, view directions and weights")
-    n, s, _ = pts.shape
-    out = torch.empty((n, s, 4), dtype=torch.float32, device=pts.device)
-    if out.numel() == 0:
-        return out
-    weights = pack_weights(params, cfg)[0]
-    err = _build.launch(_entry(), pts.get_device(), pts.data_ptr(), viewdirs.data_ptr(),
-                        weights.data_ptr(), out.data_ptr(), n * s, s, cfg.multires,
-                        cfg.multires_views)
-    if err != 0:
-        raise RuntimeError(f"fused_query_field kernel launch failed: CUDA error {err}")
-    launches += 1
-    return out
+    if packed is None:
+        if not all(x.is_contiguous() for x in weights):
+            raise ValueError("fused_query_field needs contiguous points, view directions and "
+                             "weights")
+        packed = pack_weights(params, cfg)[0]
+    return torch.ops.scnerf_tpu_torch.fused_query_field(pts, viewdirs, packed, cfg.multires,
+                                                         cfg.multires_views)
+
+
+class PackedWeights:
+    """:func:`pack_weights`' buffer of one MLP's ``params``, kept across
+    calls: :meth:`get` packs again only where a leaf has changed in place
+    since the last pack (its ``_version`` moved) or was replaced, so the
+    buffer always holds the weights that ``params`` holds. On any device;
+    packs without autograd. An inference tensor keeps no version, so a leaf
+    made under ``inference_mode`` is packed on every call."""
+
+    def __init__(self, params: dict, cfg: NeRFConfig):
+        self.params, self.cfg = params, cfg
+        self._leaves: list[torch.Tensor] = []
+        self._versions: list[int | None] = []
+        self._buffer: torch.Tensor | None = None
+
+    def get(self) -> torch.Tensor:
+        leaves = [x for layer in _layers(self.params) for x in (layer["w"], layer["b"])]
+        versions = [None if x.is_inference() else x._version for x in leaves]
+        if (self._buffer is None or None in versions or versions != self._versions
+                or any(a is not b for a, b in zip(leaves, self._leaves))):
+            with torch.no_grad():
+                self._buffer = pack_weights(self.params, self.cfg)[0]
+            self._leaves, self._versions = leaves, versions
+        return self._buffer

@@ -10,6 +10,7 @@ edge-padded chunks under ``torch.inference_mode()``.
 from __future__ import annotations
 
 import dataclasses
+from typing import Callable
 
 import torch
 
@@ -56,6 +57,8 @@ def render_rays(
     far,
     generator: torch.Generator | None = None,
     rands: dict | None = None,
+    *,
+    query: Callable | None = None,
 ) -> dict[str, torch.Tensor]:
     """Render a batch of rays with the coarse(+fine) cascade.
 
@@ -69,12 +72,17 @@ def render_rays(
       rands: optional injected randoms, as in the JAX package: ``t`` (N, S)
         jitter uniforms, ``noise0`` (N, S) and ``noise1`` (N, S+S_imp)
         standard normals, ``u`` (N, S_imp) inverse-CDF uniforms.
+      query: the field, ``query(mlp_params, model_cfg, pts, viewdirs) ->
+        raw (N, S, 4)``, called with ``params["coarse"]`` and then the fine
+        MLP's; ``query_field`` where not given (the NeRF serve function
+        routes it to K3).
     Returns:
       dict: rgb, disp, acc, depth (+ rgb0/disp0/acc0/z_std when fine active).
     """
     n = rays_o.shape[0]
     device = rays_o.device
     rands = rands or {}
+    query = query or query_field
     near = _per_ray(near, n, device)
     far = _per_ray(far, n, device)
 
@@ -84,7 +92,7 @@ def render_rays(
         t_rand=rands.get("t"),
     )
     pts = rays_o[..., None, :] + rays_d[..., None, :] * z_vals[..., :, None]
-    raw = query_field(params["coarse"], model_cfg, pts, viewdirs)
+    raw = query(params["coarse"], model_cfg, pts, viewdirs)
     coarse = raw2outputs(
         raw, z_vals, rays_d,
         raw_noise_std=render_cfg.raw_noise_std,
@@ -106,7 +114,7 @@ def render_rays(
         z_all = torch.sort(torch.cat([z_vals, z_samples], dim=-1), dim=-1).values
         pts = rays_o[..., None, :] + rays_d[..., None, :] * z_all[..., :, None]
         fine_params = params.get("fine") or params["coarse"]
-        raw = query_field(fine_params, model_cfg, pts, viewdirs)
+        raw = query(fine_params, model_cfg, pts, viewdirs)
         fine = raw2outputs(
             raw, z_all, rays_d,
             raw_noise_std=render_cfg.raw_noise_std,

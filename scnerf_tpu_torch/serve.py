@@ -6,12 +6,16 @@ Port of ``scnerf_tpu/serve.py``. The serve functions
 eval-path semantics: deterministic resampling and no jitter; for NeRF also
 viewdirs from the world rays, the optional NDC warp with the learned focal
 (near/far then 0/1), no sigma noise and the rgb clamp at 1. They run under
-``inference_mode`` in full float32.
+``inference_mode`` in full float32. The NeRF serve function queries its
+fine field through K3 (``kernels/mlp_cuda.py``) where the kernel computes
+it (weights float32 on a CUDA device, a config it supports), the weights
+packed for it once, and its coarse field, and every field elsewhere,
+through ``query_field``.
 
 :func:`export_serving_fn` writes a serve function as a ``torch.export``
 artifact (``.pt2``) with its weights as constants, traced at a fixed batch
-(:func:`nerf_serve_specs`, :func:`nerfpp_serve_specs`); K1 and K2 stay in it
-as calls of their registered operators. :func:`load_serving_fn` runs it
+(:func:`nerf_serve_specs`, :func:`nerfpp_serve_specs`); K1, K2 and K3 stay
+in it as calls of their registered operators. :func:`load_serving_fn` runs it
 without the model code. :class:`RenderService` serves any request size
 through a serve function or a loaded artifact, on one device or split over
 the ranks of a process group.
@@ -67,6 +71,48 @@ def fp32_inference():
         yield
 
 
+def nerf_field_query(params: dict, model_cfg) -> Callable:
+    """The NeRF serve function's field, ``query(mlp_params, model_cfg, pts,
+    viewdirs) -> raw (N, S, 4)`` as ``render_rays`` calls it.
+
+    The fine MLP's queries go through K3 where ``mlp_cuda.serves`` holds
+    for its weights (float32 on a CUDA device, a config the kernel
+    computes): it is packed here (``mlp_cuda.PackedWeights``), and again
+    only after one of its leaves changed in place or was replaced, so the
+    queries read the weights ``params`` holds. The coarse MLP's queries, and every query
+    elsewhere (every CPU included), take ``query_field``. The coarse field
+    places the fine samples through the inverse CDF, which is steepest in
+    the bins that hold only the eps weight: there a change of one float32
+    rounding in the coarse output moves a fine sample across much of the
+    bin. So the coarse field keeps ``query_field``'s arithmetic, which the
+    eval renders (``render_chunked``) and training share, and the serve
+    function places its fine samples where they do. While a profiler
+    records, each query adds its points to the counter
+    ``serve.field_points``, and to ``serve.field_points_k3`` when it goes
+    through K3.
+    """
+    from scnerf_tpu_torch.fields.nerf import query_field
+    from scnerf_tpu_torch.kernels import mlp_cuda
+
+    fine = params.get("fine")
+    pack = None
+    if fine is not None and mlp_cuda.serves(model_cfg, fine["pts"][0]["w"].device,
+                                            fine["pts"][0]["w"].dtype):
+        pack = mlp_cuda.PackedWeights(fine, model_cfg)
+        pack.get()  # at the build, not in the first request
+
+    def query(mlp, cfg, pts, viewdirs):
+        n = pts.shape[0] * pts.shape[1]
+        count("serve.field_points", n)
+        if pack is None or mlp is not fine:
+            return query_field(mlp, cfg, pts, viewdirs)
+        count("serve.field_points_k3", n)
+        return mlp_cuda.fused_query_field(mlp, cfg, pts.contiguous(), viewdirs.contiguous(),
+                                          packed=pack.get())
+
+    return query
+
+
 def make_nerf_serve_fn(
     params: dict,
     model_cfg,
@@ -83,11 +129,15 @@ def make_nerf_serve_fn(
       ndc: optional ``(H, W, fx, fy)``: warp the world rays into NDC with
         this focal before rendering; near/far become 0/1.
       outputs: which maps to return.
+
+    The fields go through :func:`nerf_field_query`, so on the card the
+    fine weights are packed for K3 here, at the build.
     """
     from scnerf_tpu_torch.geometry.ndc import ndc_rays
     from scnerf_tpu_torch.render.renderer import render_rays
 
     eval_cfg = render_cfg.eval_mode()
+    query = nerf_field_query(params, model_cfg)
 
     def fn(rays_o, rays_d, near, far):
         with fp32_inference():
@@ -101,7 +151,7 @@ def make_nerf_serve_fn(
                 near = torch.zeros_like(near)
                 far = torch.ones_like(far)
             out = render_rays(params, model_cfg, eval_cfg, rays_o, rays_d, viewdirs,
-                              near, far)
+                              near, far, query=query)
             out["rgb"] = torch.clamp(out["rgb"], max=1.0)
             return {k: out[k] for k in outputs}
 
@@ -177,8 +227,9 @@ def export_serving_fn(fn: Callable, specs: Sequence[TensorSpec], path: str | Non
 
     ``fn``'s weights, closed over, become the program's constants. Its
     arguments are traced on ``device``, where the weights must lie: a CUDA
-    artifact keeps its constants on the card, and K1 and K2 stay in it as
-    calls of ``torch.ops.scnerf_tpu_torch.*`` (traced by their fake
+    artifact keeps its constants on the card (the NeRF serve function's
+    packed K3 weights among them), and K1, K2 and K3 stay in it as calls of
+    ``torch.ops.scnerf_tpu_torch.*`` (traced by their fake
     implementations). Raises ``RuntimeError`` if the graph draws random
     numbers: serving is deterministic.
     """
@@ -197,7 +248,7 @@ def export_serving_fn(fn: Callable, specs: Sequence[TensorSpec], path: str | Non
 
 
 def artifact_operators(program) -> list[str]:
-    """The port's registered operators (K1, K2) that an exported program
+    """The port's registered operators (K1, K2, K3) that an exported program
     calls."""
     from scnerf_tpu_torch.kernels import pdf_cuda
 
@@ -218,21 +269,24 @@ def load_serving_fn(path_or_bytes) -> Callable:
     """Load an artifact of :func:`export_serving_fn`; returns
     ``fn(*tensors) -> {maps}``.
 
-    Needs only torch and the operator library, none of the model code: the
+    Needs only torch and the operator libraries, none of the model code: the
     schemas of K1 and K2 come from ``kernels/pdf_cuda.py`` and, for a CUDA
     artifact that calls them, their library is built (if needed) and loaded
-    by ``kernels._build.load_ops``. A CUDA artifact needs a card to load.
+    by ``kernels._build.load_ops``; K3's schema and its CUDA implementation
+    come from ``kernels/mlp_cuda.py``, whose plain-C library loads at its
+    first launch. A CUDA artifact needs a card to load.
     Each call runs under :func:`fp32_inference`, since export does not
     record the TF32 flags, and restores the caller's after. ``fn.exported``
     is the ``ExportedProgram``, ``fn.operators`` the operators it calls.
     """
-    from scnerf_tpu_torch.kernels import _build, pdf_cuda  # noqa: F401 (the schemas)
+    from scnerf_tpu_torch.kernels import _build, mlp_cuda, pdf_cuda  # noqa: F401 (the schemas)
 
     if isinstance(path_or_bytes, (bytes, bytearray)):
         path_or_bytes = io.BytesIO(bytes(path_or_bytes))
     program = torch.export.load(path_or_bytes)
     operators = artifact_operators(program)
-    if operators and artifact_device(program).type == "cuda":
+    if artifact_device(program).type == "cuda" and any(
+            op.startswith(f"{pdf_cuda.OPS_NAMESPACE}.sample_pdf") for op in operators):
         _build.load_ops("sample_pdf")
     module = program.module()
 
