@@ -851,11 +851,12 @@ def nerfpp_camera(device, *, fisheye: bool = False):
 
 def phase_nerfpp_slice(dev, card, slice_):
     from scnerf_tpu_torch.camera import pixels_to_rays, rays_full_image
-    from scnerf_tpu_torch.kernels import pdf_cuda
+    from scnerf_tpu_torch.kernels import mlp_cuda
     from scnerf_tpu_torch.render.nerfpp_renderer import render_rays_nerfpp
     from scnerf_tpu_torch.serve import RenderService, fp32_inference, make_nerfpp_serve_fn
 
-    print("== phase 6: NeRF++ serving slice at full Truck width on the card")
+    print("== phase 6: NeRF++ serving slice at full Truck width on the card (the last level's "
+          "fg and bg through K3)")
     model_cfg, render_cfg, levels, camera = slice_
     service = RenderService(make_nerfpp_serve_fn(levels, model_cfg, render_cfg),
                             PP_BATCH, device=dev)
@@ -888,6 +889,31 @@ def phase_nerfpp_slice(dev, card, slice_):
     launches = counts["K2"]
     print(f"  launches on the NeRF++ path: {counts}")
 
+    # The same requests on the plain route (every field through
+    # query_mlpnet): the K3 route's last level moves the maps by K3's
+    # float32-accuracy fields alone, since level 0, which places the last
+    # level's samples, is the plain route's. Limits: median |err| 1e-5, and
+    # the largest within the benchmark's rgb limit of 4e-3 (a sigma within
+    # rounding of 0 meets the 1e10 last bg interval).
+    serves = mlp_cuda.serves
+    mlp_cuda.serves = lambda *args: False  # read at the build only
+    try:
+        plain = RenderService(make_nerfpp_serve_fn(levels, model_cfg, render_cfg), PP_BATCH,
+                              device=dev)
+    finally:
+        mlp_cuda.serves = serves
+    k3_errs = {}
+    for name, (ray_o, ray_d) in requests.items():
+        want = plain(ray_o, ray_d, torch.full((ray_o.shape[0],), 1e-4, device=dev))
+        for k, v in want.items():
+            err = np.abs(outputs[name][k].astype(np.float64) - v)
+            k3_errs[f"{name}_{k}"] = float(err.max())
+            print(f"  {name} {k}: K3 route vs plain route median|err|={np.median(err):.3e} "
+                  f"max|err|={err.max():.3e}")
+            require(np.median(err) < 1e-5 and err.max() < 4e-3,
+                    f"{name} {k}: K3 route vs plain route median {np.median(err)}, "
+                    f"max {err.max()}")
+
     batches = 0
     for name, (ray_o, _) in requests.items():
         n = ray_o.shape[0]
@@ -908,6 +934,11 @@ def phase_nerfpp_slice(dev, card, slice_):
               f"fg_depth mean {out['fg_depth'].mean():.4f}")
     print(f"  pdf_cuda.diff_launches={launches} over {batches} batches served")
     require(launches >= 2 * batches, f"K2 launched {launches} times for {batches} batches")
+    full = -(-requests["full_image"][0].shape[0] // PP_BATCH)
+    print(f"  mlp_cuda.launches={counts['K3']} over {batches} batches served (the last level's "
+          f"fg and bg: {2 * full} for the full image's {full} slices)")
+    require(counts["K3"] == 2 * batches, f"K3 launched {counts['K3']} times for {batches} "
+            "batches")
 
     # The deterministic u ends at 1.0; the NeRF++ search stops at cdf[B-2],
     # so the guard meets it only where the last bin weighs under 1e-6.
@@ -921,7 +952,39 @@ def phase_nerfpp_slice(dev, card, slice_):
             w = level0[k][..., 1:-1] + 1e-6
             share = float((w[..., -1] / w.sum(-1) < 1e-6).float().mean())
             print(f"  share of rays whose last {k[:2]} bin weighs under 1e-6: {share:.4e}")
-    return requests, outputs, launches
+    return requests, outputs, launches, k3_errs
+
+
+def record_nerfpp_field_queries(dev, slice_, requests):
+    """The last level's fg and bg field queries of one 4096-ray batch of
+    phase 6's 65,536-pixel request, as ``nerfpp_forward`` hands them to the
+    serve function's fields, each with ``query_mlpnet``'s ``(rgb, sigma)``
+    (the plain route)."""
+    from scnerf_tpu_torch.fields.nerfpp import query_mlpnet
+    from scnerf_tpu_torch.render.nerfpp_renderer import render_rays_nerfpp
+    from scnerf_tpu_torch.serve import fp32_inference
+
+    model_cfg, render_cfg, levels, _ = slice_
+    ray_o, ray_d = (x[:PP_BATCH] for x in requests[f"{PP_PIXEL_REQUESTS[-1]}_pixels"])
+    queries = []
+
+    def recording(mlp, cfg, pts, views_enc, input_dim):
+        out = query_mlpnet(mlp, cfg, pts, views_enc, input_dim)
+        if mlp is levels[-1]["fg"] or mlp is levels[-1]["bg"]:
+            queries.append(dict(params=mlp, pts=pts.contiguous(),
+                                viewdirs=views_enc[:, :3].contiguous(), views_enc=views_enc,
+                                plain=out))
+        return out
+
+    with fp32_inference():
+        render_rays_nerfpp(levels, model_cfg, dataclasses.replace(render_cfg, perturb=False),
+                           ray_o, ray_d, torch.full((PP_BATCH,), 1e-4, device=dev),
+                           query=recording)
+    shapes = [tuple(q["pts"].shape) for q in queries]
+    total = sum(PP_CASCADE)
+    require(shapes == [(PP_BATCH, total, 3), (PP_BATCH, total, 4)],
+            f"recorded NeRF++ field queries {shapes}")
+    return queries
 
 
 def phase_nerfpp_cpu_agreement(slice_, requests, outputs):
@@ -929,7 +992,7 @@ def phase_nerfpp_cpu_agreement(slice_, requests, outputs):
     from scnerf_tpu_torch.kernels import pdf_cuda
     from scnerf_tpu_torch.serve import make_nerfpp_serve_fn
 
-    print("== phase 7: the card against the CPU port, NeRF++")
+    print("== phase 7: the card (the last level on K3) against the CPU port, NeRF++")
     model_cfg, render_cfg, levels, _ = slice_
     n = PP_CPU_RAYS
     name = f"{PP_PIXEL_REQUESTS[-1]}_pixels"
@@ -1045,23 +1108,35 @@ def record_field_queries(dev, slice_, requests):
     return queries
 
 
-def phase_k3(model_cfg, queries):
-    from scnerf_tpu_torch.fields.nerf import query_field
+def phase_k3(model_cfg, queries, pp_cfg, pp_queries):
+    from scnerf_tpu_torch.fields.nerf import NeRFConfig, query_field
+    from scnerf_tpu_torch.fields.nerfpp import query_mlpnet
     from scnerf_tpu_torch.kernels import mlp_cuda
     from scnerf_tpu_torch.serve import fp32_inference
 
-    print("== phase 9: K3 fused encoding + NeRF MLP kernel at the NeRF serving path's points")
-    print(f"  dynamic shared memory per block at multires {model_cfg.multires}/"
-          f"{model_cfg.multires_views}: {mlp_cuda.shared_memory_bytes(model_cfg)} bytes")
+    print("== phase 9: K3 fused encoding + NeRF MLP kernel at the NeRF and NeRF++ serving "
+          "paths' points")
+    # NeRF++'s MLPNet is the kernel's network under other names.
+    pp_kernel_cfg = NeRFConfig(depth=pp_cfg.depth, width=pp_cfg.width, skips=pp_cfg.skips,
+                               multires=pp_cfg.max_freq_log2,
+                               multires_views=pp_cfg.max_freq_log2_viewdirs)
+    for dim in mlp_cuda.POINT_DIMS:
+        print(f"  dynamic shared memory per block at multires {model_cfg.multires}/"
+              f"{model_cfg.multires_views}, points {dim} wide: "
+              f"{mlp_cuda.shared_memory_bytes(model_cfg, dim)} bytes")
     coarse, fine = queries
     n, s = K3_RAGGED
     cases = {"coarse": coarse, "fine": fine, "ragged": dict(
         params=fine["params"], pts=fine["pts"][:n, :s].contiguous(),
         viewdirs=fine["viewdirs"][:n].contiguous(), raw=fine["raw"][:n, :s])}
+    for q in cases.values():
+        q["cfg"] = model_cfg
+    for name, q in zip(("nerfpp_fg", "nerfpp_bg"), pp_queries):
+        cases[name] = dict(q, cfg=pp_kernel_cfg)
 
     reset_launches()
     with fp32_inference():
-        outs = {name: mlp_cuda.fused_query_field(q["params"], model_cfg, q["pts"], q["viewdirs"])
+        outs = {name: mlp_cuda.fused_query_field(q["params"], q["cfg"], q["pts"], q["viewdirs"])
                 for name, q in cases.items()}
     torch.cuda.synchronize()
     counts = launch_counts()
@@ -1069,17 +1144,25 @@ def phase_k3(model_cfg, queries):
     print(f"  launches on K3's path: {counts}")
     require(launches == len(cases), f"K3 launched {launches} times for {len(cases)} calls")
 
-    record = None
+    record, pp_rows = None, {}
     for name, q in cases.items():
-        args = (q["params"], model_cfg, q["pts"], q["viewdirs"])
+        args = (q["params"], q["cfg"], q["pts"], q["viewdirs"])
         got = outs[name]
         require(got.shape == (*q["pts"].shape[:2], 4) and bool(torch.isfinite(got).all()),
                 f"K3 {name}: shape {tuple(got.shape)} or values not finite")
         with fp32_inference():
             twin = mlp_cuda.fused_query_field_plain(*args)
+        if "plain" in q:  # an MLPNet: its heads' activations, and query_mlpnet's outputs
+            refs = (("twin", twin), ("query_mlpnet rgb", q["plain"][0]),
+                    ("query_mlpnet sigma", q["plain"][1]))
+            activated = {"twin": got, "query_mlpnet rgb": torch.sigmoid(got[..., :3]),
+                         "query_mlpnet sigma": torch.abs(got[..., 3])}
+        else:
+            refs = (("twin", twin), ("query_field", q["raw"]))
+            activated = {"twin": got, "query_field": got}
         errs = {}
-        for ref_name, ref in (("twin", twin), ("query_field", q["raw"])):
-            err = (got - ref).abs()
+        for ref_name, ref in refs:
+            err = (activated[ref_name] - ref).abs()
             med, mx = float(err.median()), float(err.max())
             errs[ref_name] = (med, mx)
             print(f"  {name} pts {tuple(q['pts'].shape)} vs {ref_name}: median|err|={med:.3e} "
@@ -1092,14 +1175,24 @@ def phase_k3(model_cfg, queries):
             with fp32_inference():
                 return per_call_ms(lambda: fn(*args), calls=K3_TIMING_CALLS, repeats=3)
 
-        packed = mlp_cuda.pack_weights(q["params"], model_cfg)[0]
+        dim = q["pts"].shape[-1]
+        packed = mlp_cuda.pack_weights(q["params"], q["cfg"], dim)[0]
         ms = timed(functools.partial(mlp_cuda.fused_query_field, packed=packed))
         unpacked_ms = timed(mlp_cuda.fused_query_field)
-        pack_ms = per_call_ms(lambda: mlp_cuda.pack_weights(q["params"], model_cfg),
+        pack_ms = per_call_ms(lambda: mlp_cuda.pack_weights(q["params"], q["cfg"], dim),
                               repeats=3)
         plain_ms = timed(mlp_cuda.fused_query_field_plain)
-        query_field_ms = timed(query_field)
-        weights = [x for layer in [*q["params"]["pts"], *(q["params"][h] for h in mlp_cuda.HEADS)]
+        if "plain" in q:  # the serving path's plain field for an MLPNet
+            ref_name = "query_mlpnet"
+            with fp32_inference():
+                query_field_ms = per_call_ms(
+                    lambda: query_mlpnet(q["params"], pp_cfg, q["pts"], q["views_enc"], dim),
+                    calls=K3_TIMING_CALLS, repeats=3)
+        else:
+            ref_name = "query_field"
+            query_field_ms = timed(query_field)
+        named = mlp_cuda.nerf_names(q["params"])
+        weights = [x for layer in [*named["pts"], *(named[h] for h in mlp_cuda.HEADS)]
                    for x in (layer["w"], layer["b"])]
         macs = sum(layer.numel() for layer in weights[::2])  # per point
         points = q["pts"].shape[0] * q["pts"].shape[1]
@@ -1112,11 +1205,15 @@ def phase_k3(model_cfg, queries):
         fp32_simt_ms = bound(n_bytes, flop)["bound_ms"]
         print(f"  {name}: {macs} MAC/point; kernel_ms={ms:.3f} (weights packed beforehand; "
               f"{unpacked_ms:.3f} packing on each call, the packing alone {pack_ms:.3f}) "
-              f"plain_ms={plain_ms:.3f} query_field_ms={query_field_ms:.3f} "
+              f"plain_ms={plain_ms:.3f} {ref_name}_ms={query_field_ms:.3f} "
               f"bound_ms={bnd['bound_ms']:.3f} (3xTF32 on the tensor cores; "
               f"{bnd['bound_ms'] / ms:.1%} of it) bound_fp32_simt_ms={fp32_simt_ms:.3f}; "
               f"kernel {flop / ms / 1e9:.2f} useful TFLOP/s; "
-              f"query_field/kernel {query_field_ms / ms:.2f}x")
+              f"{ref_name}/kernel {query_field_ms / ms:.2f}x")
+        if "plain" in q:
+            pp_rows[name] = dict(max_abs_err=errs["twin"][1], median_abs_err=errs["twin"][0],
+                                 ms=ms, query_mlpnet_ms=query_field_ms, pack_ms=pack_ms,
+                                 **bnd, useful_tflops=flop / ms / 1e9)
         if name == "fine":
             record = dict(max_abs_err=errs["twin"][1], median_abs_err=errs["twin"][0],
                           max_abs_err_query_field=errs["query_field"][1], ms=ms,
@@ -1125,6 +1222,7 @@ def phase_k3(model_cfg, queries):
                           bound_fp32_simt_ms=fp32_simt_ms, pack_ms=pack_ms,
                           unpacked_ms=unpacked_ms,
                           useful_tflops=flop / ms / 1e9, library_ms=None)
+    record["nerfpp"] = pp_rows
     return record, launches
 
 
@@ -4447,13 +4545,16 @@ def main() -> int:
 
     pp_record = phase_k2(dev)
     pp_slice = make_nerfpp_slice(dev)
-    pp_requests, pp_outputs, pp_launches = phase_nerfpp_slice(dev, card, pp_slice)
+    pp_requests, pp_outputs, pp_launches, pp_k3_errs = phase_nerfpp_slice(dev, card, pp_slice)
     phase_nerfpp_cpu_agreement(pp_slice, pp_requests, pp_outputs)
+    pp_queries = record_nerfpp_field_queries(dev, pp_slice, pp_requests)
+    pp_cfg = pp_slice[0]
     del pp_slice, pp_requests, pp_outputs
 
     search_record, search_launches = phase_k4(dev)
-    field_record, field_launches = phase_k3(model_cfg, queries)
-    del queries
+    field_record, field_launches = phase_k3(model_cfg, queries, pp_cfg, pp_queries)
+    field_record["nerfpp_serve_route_max_err"] = pp_k3_errs
+    del queries, pp_queries
 
     train_slice = make_slice(dev)
     train_record = phase_train(dev, card, train_slice)

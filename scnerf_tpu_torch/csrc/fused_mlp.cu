@@ -3,14 +3,18 @@
 //
 // Replaces the Pallas TPU kernel scnerf_tpu/kernels/mlp_pallas.py:
 // fused_query_field (body _kernel), for the configs it supports: depth 8,
-// width 256, the skip after layer 4, viewdirs, float32. Per point, with
-// pe = [x, sin(2^0 x), cos(2^0 x), ..., cos(2^(F-1) x)] (3 + 6F wide) and ve
-// the same of the ray's view direction (3 + 6Fv wide):
+// width 256, the skip after layer 4, viewdirs, float32. Points are D = 3 or
+// 4 wide (NeRF's and NeRF++'s fg points; NeRF++'s inverted-sphere bg points
+// (x/r, y/r, z/r, 1/r)), D a template parameter of the kernel. Per point,
+// with pe = [x, sin(2^0 x), cos(2^0 x), ..., cos(2^(F-1) x)] (D + 2DF wide)
+// and ve the same of the ray's view direction (3 + 6Fv wide):
 //   h = relu(pe W0 + b0); h = relu(h Wl + bl), l = 1..4
 //   h = [pe, h];          h = relu(h Wl + bl), l = 5..7
 //   alpha = h Wa + ba     (from the trunk)
 //   feat = h Wf + bf;     hv = relu([feat, ve] Wv + bv);  rgb = hv Wr + br
 //   out = [rgb, alpha]    (N, S, 4)
+// NeRF++'s MLPNet is this network under other names (base, sigma, remap,
+// rgb0, rgb1); its caller applies abs to alpha and a sigmoid to rgb.
 //
 // What bounds it: operations. A point costs 593,408 multiply-adds at
 // multires 10/4 and moves 40 bytes; at the fine shape of the NeRF serving
@@ -46,7 +50,8 @@
 // - Rows with K padded to a multiple of 32 by zero rows (the K-slices are
 //   32 or 16 deep): pe in rows [0, pe_pad) (63 -> 64 at 10/4), each trunk
 //   layer writes rows [pe_pad, pe_pad + 256), so after layer 4 the rows are
-//   [pe, 0, h] and the skip concat costs nothing (319 -> 320 wide). The
+//   [pe, 0, h] and the skip concat costs nothing (319 -> 320 wide; at D = 4,
+//   84 -> 96 and 340 -> 352). The
 //   feature head writes rows [0, 256) and the view encoding goes into
 //   [256, 256 + ve_pad) (283 -> 288 wide), so [feat, ve] is free too. A
 //   layer writes over its own input: its outputs wait in the accumulators
@@ -77,7 +82,8 @@
 // - Shared memory: act (256 + max(pe_pad, ve_pad)) x 72 x 4 B, 92,160 at
 //   10/4 and 110,592 at 16/16, plus the ring: 223,232 at 10/4 (32-deep),
 //   208,896 at 16/16 (16-deep), of the 232,448 a block may use; one block
-//   per SM. Registers: 64 accumulators, 64 for a slice's products, 8 for
+//   per SM. At D = 4, 10/4: 101,376 + 131,072 = 232,448 (32-deep, exactly
+//   the limit); at 16/16: 119,808 + 98,304 (16-deep). Registers: 64 accumulators, 64 for a slice's products, 8 for
 //   each k8 step's split A fragment (-Xptxas -v in build/kernels/
 //   fused_mlp.log: no spills).
 // - Frequencies are the exact powers 2^i, as fields/encoding.py:freq_bands
@@ -121,9 +127,9 @@ struct Layout {
   int64_t rgb_w;
 };
 
-Layout make_layout(int n_freqs_pos, int n_freqs_view) {
+Layout make_layout(int point_dim, int n_freqs_pos, int n_freqs_view) {
   Layout lay;
-  lay.pe_rows = 3 + 6 * n_freqs_pos;
+  lay.pe_rows = point_dim * (1 + 2 * n_freqs_pos);
   lay.ve_rows = 3 + 6 * n_freqs_view;
   lay.pe_pad = pad_k(lay.pe_rows);
   lay.ve_pad = pad_k(lay.ve_rows);
@@ -279,15 +285,17 @@ struct Ring {
   }
 };
 
-// Writes [x, sin(2^0 x), cos(2^0 x), ...] of coordinate d of point p into
-// rows row0 + d, row0 + 3 + 6i + d (sin) and row0 + 6 + 6i + d (cos).
+// Writes [x, sin(2^0 x), cos(2^0 x), ...] of coordinate d of a kDim-wide
+// point p into rows row0 + d, row0 + kDim + 2 kDim i + d (sin) and
+// row0 + 2 kDim + 2 kDim i + d (cos).
+template <int kDim>
 __device__ __forceinline__ void encode(float x, int d, int p, int n_freqs, int row0,
                                        float* act) {
   act[(row0 + d) * kStride + p] = x;
   for (int i = 0; i < n_freqs; ++i) {
     const float s = x * ldexpf(1.f, i);  // exact: a power of two
-    act[(row0 + 3 + 6 * i + d) * kStride + p] = sinf(s);
-    act[(row0 + 6 + 6 * i + d) * kStride + p] = cosf(s);
+    act[(row0 + kDim + 2 * kDim * i + d) * kStride + p] = sinf(s);
+    act[(row0 + 2 * kDim + 2 * kDim * i + d) * kStride + p] = cosf(s);
   }
 }
 
@@ -356,7 +364,7 @@ __device__ __forceinline__ void tc_layer(Ring<kSliceK, kStages>& ring, float* ac
   // explicit one) orders these writes before its reads.
 }
 
-template <int kSliceK, int kStages>
+template <int kDim, int kSliceK, int kStages>
 __global__ void __launch_bounds__(kThreads, 1)
 fused_query_field_kernel(const float* __restrict__ pts, const float* __restrict__ viewdirs,
                          const float* __restrict__ w, Layout lay, float* __restrict__ out,
@@ -374,11 +382,11 @@ fused_query_field_kernel(const float* __restrict__ pts, const float* __restrict_
 
   // pe into rows [0, pe_rows), zero rows up to pe_pad; the ragged tile's
   // missing points read 0. The first layer's barrier orders these writes.
-  for (int t = threadIdx.x; t < 3 * kTile; t += kThreads) {
-    const int p = t / 3, d = t % 3;
+  for (int t = threadIdx.x; t < kDim * kTile; t += kThreads) {
+    const int p = t / kDim, d = t % kDim;
     const int64_t point = tile0 + p;
-    const float x = point < n_points ? pts[point * 3 + d] : 0.f;
-    encode(x, d, p, n_freqs_pos, 0, act);
+    const float x = point < n_points ? pts[point * kDim + d] : 0.f;
+    encode<kDim>(x, d, p, n_freqs_pos, 0, act);
   }
   for (int t = threadIdx.x; t < (lay.pe_pad - lay.pe_rows) * kTile; t += kThreads) {
     act[(lay.pe_rows + t / kTile) * kStride + t % kTile] = 0.f;
@@ -416,7 +424,7 @@ fused_query_field_kernel(const float* __restrict__ pts, const float* __restrict_
     const int p = t / 3, d = t % 3;
     const int64_t point = tile0 + p;
     const float x = point < n_points ? viewdirs[(point / n_samples) * 3 + d] : 0.f;
-    encode(x, d, p, n_freqs_view, kWidth, act);
+    encode<3>(x, d, p, n_freqs_view, kWidth, act);
   }
   for (int t = threadIdx.x; t < (lay.ve_pad - lay.ve_rows) * kTile; t += kThreads) {
     act[(kWidth + lay.ve_rows + t / kTile) * kStride + t % kTile] = 0.f;
@@ -440,54 +448,68 @@ fused_query_field_kernel(const float* __restrict__ pts, const float* __restrict_
   }
 }
 
-template <int kSliceK, int kStages>
+template <int kDim, int kSliceK, int kStages>
 int launch(const float* pts, const float* viewdirs, const float* weights, float* out,
            long long n_points, int n_samples, int n_freqs_pos, int n_freqs_view,
            const Layout& lay, cudaStream_t stream) {
   const size_t smem = act_bytes(lay) + ring_bytes(kSliceK, kStages);
   if (smem > kDefaultSmem) {
-    const cudaError_t err = cudaFuncSetAttribute(fused_query_field_kernel<kSliceK, kStages>,
+    const cudaError_t err = cudaFuncSetAttribute(fused_query_field_kernel<kDim, kSliceK, kStages>,
                                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                  static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const long long blocks = (n_points + kTile - 1) / kTile;
-  fused_query_field_kernel<kSliceK, kStages>
+  fused_query_field_kernel<kDim, kSliceK, kStages>
       <<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
           pts, viewdirs, weights, lay, out, n_points, n_samples, n_freqs_pos, n_freqs_view);
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
-// The dynamic shared memory a block of the kernel takes at these frequency
-// counts (bytes).
-extern "C" long long scnerf_fused_query_field_smem(int n_freqs_pos, int n_freqs_view) {
-  return static_cast<long long>(shared_bytes(make_layout(n_freqs_pos, n_freqs_view)));
+template <int kDim>
+int launch_dim(const float* pts, const float* viewdirs, const float* weights, float* out,
+               long long n_points, int n_samples, int n_freqs_pos, int n_freqs_view,
+               cudaStream_t stream) {
+  const Layout lay = make_layout(kDim, n_freqs_pos, n_freqs_view);
+  if (deep_slices(lay)) {
+    return launch<kDim, 32, 2>(pts, viewdirs, weights, out, n_points, n_samples, n_freqs_pos,
+                               n_freqs_view, lay, stream);
+  }
+  return launch<kDim, 16, 3>(pts, viewdirs, weights, out, n_points, n_samples, n_freqs_pos,
+                             n_freqs_view, lay, stream);
 }
 
-// pts (n_points, 3) with n_points = n_rays * n_samples, viewdirs (n_rays, 3)
-// and out (n_points, 4): float32, contiguous, on the current device. weights
-// is mlp_cuda.py:pack_weights's buffer for these frequency counts, 16-byte
-// aligned. 0 <= n_freqs_pos, n_freqs_view <= 16. Launch on `stream`; return
-// cudaGetLastError() (or the error that kept it from launching).
+}  // namespace
+
+// The dynamic shared memory a block of the kernel takes at this point width
+// and these frequency counts (bytes).
+extern "C" long long scnerf_fused_query_field_smem(int point_dim, int n_freqs_pos,
+                                                   int n_freqs_view) {
+  return static_cast<long long>(shared_bytes(make_layout(point_dim, n_freqs_pos, n_freqs_view)));
+}
+
+// pts (n_points, point_dim) with n_points = n_rays * n_samples and point_dim
+// 3 or 4, viewdirs (n_rays, 3) and out (n_points, 4): float32, contiguous, on
+// the current device. weights is mlp_cuda.py:pack_weights's buffer for this
+// point width and these frequency counts, 16-byte aligned. 0 <= n_freqs_pos,
+// n_freqs_view <= 16. Launch on `stream`; return cudaGetLastError() (or the
+// error that kept it from launching).
 extern "C" int scnerf_fused_query_field(const float* pts, const float* viewdirs,
                                         const float* weights, float* out, long long n_points,
-                                        int n_samples, int n_freqs_pos, int n_freqs_view,
-                                        cudaStream_t stream) {
+                                        int n_samples, int point_dim, int n_freqs_pos,
+                                        int n_freqs_view, cudaStream_t stream) {
   if (n_points == 0) return static_cast<int>(cudaSuccess);
   if (n_freqs_pos < 0 || n_freqs_pos > kMaxFreqs || n_freqs_view < 0 ||
-      n_freqs_view > kMaxFreqs || n_samples <= 0) {
+      n_freqs_view > kMaxFreqs || n_samples <= 0 || (point_dim != 3 && point_dim != 4)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (reinterpret_cast<uintptr_t>(weights) % 16 != 0) {
     return static_cast<int>(cudaErrorMisalignedAddress);
   }
-  const Layout lay = make_layout(n_freqs_pos, n_freqs_view);
-  if (deep_slices(lay)) {
-    return launch<32, 2>(pts, viewdirs, weights, out, n_points, n_samples, n_freqs_pos,
-                         n_freqs_view, lay, stream);
+  if (point_dim == 3) {
+    return launch_dim<3>(pts, viewdirs, weights, out, n_points, n_samples, n_freqs_pos,
+                         n_freqs_view, stream);
   }
-  return launch<16, 3>(pts, viewdirs, weights, out, n_points, n_samples, n_freqs_pos,
-                       n_freqs_view, lay, stream);
+  return launch_dim<4>(pts, viewdirs, weights, out, n_points, n_samples, n_freqs_pos,
+                       n_freqs_view, stream);
 }

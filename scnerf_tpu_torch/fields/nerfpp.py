@@ -24,6 +24,7 @@ does.
 from __future__ import annotations
 
 import dataclasses
+from typing import Callable
 
 import torch
 
@@ -126,6 +127,7 @@ def nerfpp_forward(
     fg_z_max: torch.Tensor,
     fg_z_vals: torch.Tensor,
     bg_z_vals: torch.Tensor,
+    query: Callable | None = None,
 ) -> dict[str, torch.Tensor]:
     """Joint fg/bg render of one cascade level.
 
@@ -134,10 +136,15 @@ def nerfpp_forward(
       fg_z_max: ``(N,)`` depth of the unit-sphere exit point.
       fg_z_vals: ``(N, S_fg)`` fg sample depths.
       bg_z_vals: ``(N, S_bg)`` bg inverse depths in [0, 1].
+      query: the fields, ``query(mlpnet_params, cfg, pts, views_enc,
+        input_dim) -> (rgb, sigma)`` as :func:`query_mlpnet`, which it is
+        where not given (the NeRF++ serve function passes its own,
+        ``serve.py:nerfpp_field_query``).
     Returns:
       dict: rgb, fg_weights, bg_weights, fg_rgb, fg_depth, bg_rgb, bg_depth,
       bg_lambda.
     """
+    query = query or query_mlpnet
     ray_d_norm = torch.linalg.vector_norm(ray_d, dim=-1, keepdim=True)
     viewdirs = ray_d / ray_d_norm
     views_enc = positional_encoding(viewdirs, cfg.view_encoding)
@@ -145,7 +152,7 @@ def nerfpp_forward(
     # ---- foreground. Each net's activations are freed before the next
     # runs: only its (rgb, sigma) outlive the call.
     fg_pts = ray_o[..., None, :] + fg_z_vals[..., None] * ray_d[..., None, :]
-    fg_rgb, fg_sigma = query_mlpnet(params["fg"], cfg, fg_pts, views_enc, 3)
+    fg_rgb, fg_sigma = query(params["fg"], cfg, fg_pts, views_enc, 3)
 
     fg_dists = fg_z_vals[..., 1:] - fg_z_vals[..., :-1]
     fg_dists = ray_d_norm * torch.cat(
@@ -167,7 +174,7 @@ def nerfpp_forward(
     bg_z_flip = torch.flip(bg_z_vals, dims=[-1])  # 1 -> 0
     bg_dists = bg_z_flip[..., :-1] - bg_z_flip[..., 1:]
     bg_dists = torch.cat([bg_dists, torch.full_like(bg_dists[..., :1], HUGE_NUMBER)], dim=-1)
-    bg_rgb, bg_sigma = query_mlpnet(params["bg"], cfg, bg_pts, views_enc, 4)
+    bg_rgb, bg_sigma = query(params["bg"], cfg, bg_pts, views_enc, 4)
     bg_alpha = 1.0 - torch.exp(-bg_sigma * bg_dists)
     T = cumprod_positive(1.0 - bg_alpha + TINY_NUMBER)[..., :-1]
     T = torch.cat([torch.ones_like(T[..., :1]), T], dim=-1)

@@ -35,6 +35,7 @@ every name; the JAX TPU branch runs the NeRF variant by mistake.
 from __future__ import annotations
 
 import dataclasses
+from typing import Callable
 
 import torch
 
@@ -82,6 +83,7 @@ def render_rays_nerfpp(
     min_depth: torch.Tensor,
     generator: torch.Generator | None = None,
     rands: list | None = None,
+    query: Callable | None = None,
 ) -> list[dict[str, torch.Tensor]]:
     """Run every cascade level; returns the per-level outputs of
     :func:`nerfpp_forward`.
@@ -96,6 +98,8 @@ def render_rays_nerfpp(
         ``(fg, bg)`` pair per level, the jitter ``t_rand`` ``(N, S_0)`` at
         level 0 (applied even when ``perturb`` is off) and the inverse-CDF
         ``u`` ``(N, S_m)`` at the later levels.
+      query: the fields of every level, as :func:`nerfpp_forward` takes
+        them (``query_mlpnet`` where not given).
     """
     if render_cfg.pdf_impl not in PDF_IMPLS:
         raise ValueError(f"pdf_impl must be one of {PDF_IMPLS}, got {render_cfg.pdf_impl!r}")
@@ -118,7 +122,7 @@ def render_rays_nerfpp(
             bg_depth = _resample(render_cfg, generator, bg_depth, ret["bg_weights"],
                                  n_samp, r_bg)
         ret = nerfpp_forward(level_params[m], model_cfg, ray_o, ray_d, fg_far,
-                             fg_depth, bg_depth)
+                             fg_depth, bg_depth, query=query)
         outs.append(ret)
     return outs
 

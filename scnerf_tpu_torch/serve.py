@@ -10,7 +10,10 @@ viewdirs from the world rays, the optional NDC warp with the learned focal
 fine field through K3 (``kernels/mlp_cuda.py``) where the kernel computes
 it (weights float32 on a CUDA device, a config it supports), the weights
 packed for it once, and its coarse field, and every field elsewhere,
-through ``query_field``.
+through ``query_field``. The NeRF++ serve function does the same with its
+last cascade level's fg and bg MLPNets (the 4-D bg points in the kernel's
+4-D build), and queries level 0, and every field elsewhere, through
+``query_mlpnet``.
 
 :func:`export_serving_fn` writes a serve function as a ``torch.export``
 artifact (``.pt2``) with its weights as constants, traced at a fixed batch
@@ -161,6 +164,54 @@ def make_nerf_serve_fn(
 NERFPP_OUTPUTS = ("rgb", "fg_depth", "bg_lambda")
 
 
+def nerfpp_field_query(level_params: list, model_cfg) -> Callable:
+    """The NeRF++ serve function's fields, ``query(mlpnet_params, model_cfg,
+    pts, views_enc, input_dim) -> (rgb, sigma)`` as ``nerfpp_forward`` calls
+    them.
+
+    The last cascade level's fg and bg MLPNets go through K3 where
+    ``mlp_cuda.serves`` holds for their weights (float32 on a CUDA device, a
+    config the kernel computes), each packed here once for its point width
+    (fg 3, bg 4) and again only after one of its leaves changed; the kernel
+    takes the view directions, which are the first three columns of
+    ``views_enc``, and returns the raw heads, to which ``abs`` (sigma) and
+    a sigmoid (rgb) are applied here as ``mlpnet_apply`` applies them. The
+    earlier levels place the later levels' samples through K2's inverse CDF
+    (``nerf_field_query`` says why that keeps them on the plain route), so
+    they, and every query elsewhere (every CPU included), take
+    ``query_mlpnet``. While a profiler records, each query adds its points
+    to the counter ``serve.field_points``, and to ``serve.field_points_k3``
+    when it goes through K3.
+    """
+    from scnerf_tpu_torch.fields.nerf import NeRFConfig
+    from scnerf_tpu_torch.fields.nerfpp import query_mlpnet
+    from scnerf_tpu_torch.kernels import mlp_cuda
+
+    kernel_cfg = NeRFConfig(depth=model_cfg.depth, width=model_cfg.width,
+                            skips=tuple(model_cfg.skips), multires=model_cfg.max_freq_log2,
+                            multires_views=model_cfg.max_freq_log2_viewdirs)
+    packs = []  # (MLPNet, its PackedWeights)
+    for name, dim in (("fg", 3), ("bg", 4)):
+        mlp = level_params[-1][name]
+        w = mlp["base"][0]["w"]
+        if mlp_cuda.serves(kernel_cfg, w.device, w.dtype):
+            packs.append((mlp, mlp_cuda.PackedWeights(mlp, kernel_cfg, dim)))
+            packs[-1][1].get()  # at the build, not in the first request
+
+    def query(mlp, cfg, pts, views_enc, input_dim):
+        n = pts.shape[0] * pts.shape[1]
+        count("serve.field_points", n)
+        pack = next((p for m, p in packs if m is mlp), None)
+        if pack is None:
+            return query_mlpnet(mlp, cfg, pts, views_enc, input_dim)
+        count("serve.field_points_k3", n)
+        raw = mlp_cuda.fused_query_field(mlp, kernel_cfg, pts.contiguous(),
+                                         views_enc[:, :3].contiguous(), packed=pack.get())
+        return torch.sigmoid(raw[..., :3]), torch.abs(raw[..., 3])
+
+    return query
+
+
 def make_nerfpp_serve_fn(level_params: list, model_cfg, render_cfg) -> Callable:
     """Build ``fn(ray_o, ray_d, min_depth) -> {maps}``: the last cascade
     level's ``NERFPP_OUTPUTS``, as the JAX package's NeRF++ serve function
@@ -169,15 +220,19 @@ def make_nerfpp_serve_fn(level_params: list, model_cfg, render_cfg) -> Callable:
     Args:
       level_params: one ``{"fg", "bg"}`` param dict per cascade level, on
         the device the rays will come on (closed over).
+
+    The fields go through :func:`nerfpp_field_query`, so on the card the
+    last level's weights are packed for K3 here, at the build.
     """
     from scnerf_tpu_torch.render.nerfpp_renderer import render_rays_nerfpp
 
     eval_cfg = dataclasses.replace(render_cfg, perturb=False)
+    query = nerfpp_field_query(level_params, model_cfg)
 
     def fn(ray_o, ray_d, min_depth):
         with fp32_inference():
             last = render_rays_nerfpp(level_params, model_cfg, eval_cfg, ray_o, ray_d,
-                                      min_depth)[-1]
+                                      min_depth, query=query)[-1]
             return {k: last[k] for k in NERFPP_OUTPUTS}
 
     return fn

@@ -287,9 +287,9 @@ class TestPacked:
         calls = []
         pack = mlp_cuda.pack_weights
 
-        def counted(p, c):
+        def counted(p, c, *point_dim):
             calls.append(1)
-            return pack(p, c)
+            return pack(p, c, *point_dim)
 
         monkeypatch.setattr(mlp_cuda, "pack_weights", counted)
         packed = mlp_cuda.PackedWeights(params, cfg)
@@ -375,7 +375,8 @@ class TestServeOnCard:
         cfg, params, render_cfg, rays = fern_slice(cuda)
         calls = []
         pack = mlp_cuda.pack_weights
-        monkeypatch.setattr(mlp_cuda, "pack_weights", lambda p, c: calls.append(p) or pack(p, c))
+        monkeypatch.setattr(mlp_cuda, "pack_weights",
+                            lambda p, c, *dim: calls.append(p) or pack(p, c, *dim))
         fn = serve.make_nerf_serve_fn(params, cfg, render_cfg)
         assert len(calls) == 1 and calls[0] is params["fine"]
         for _ in range(3):
