@@ -1203,24 +1203,32 @@ def phase_k3(model_cfg, queries, pp_cfg, pp_queries):
                        + sum(x.numel() for x in weights) + got.numel())
         bnd = bound(n_bytes, 3 * flop, TF32_FLOP_PER_S)
         fp32_simt_ms = bound(n_bytes, flop)["bound_ms"]
+        # Every 64-point tile streams the packed tensor-core weights from L2.
+        tiles = -(-points // 64)
+        stream_bytes = 4 * mlp_cuda.layout(q["cfg"].multires, q["cfg"].multires_views,
+                                           dim)["bias"]
+        l2_tb_per_s = tiles * stream_bytes / ms / 1e9
         print(f"  {name}: {macs} MAC/point; kernel_ms={ms:.3f} (weights packed beforehand; "
               f"{unpacked_ms:.3f} packing on each call, the packing alone {pack_ms:.3f}) "
               f"plain_ms={plain_ms:.3f} {ref_name}_ms={query_field_ms:.3f} "
               f"bound_ms={bnd['bound_ms']:.3f} (3xTF32 on the tensor cores; "
               f"{bnd['bound_ms'] / ms:.1%} of it) bound_fp32_simt_ms={fp32_simt_ms:.3f}; "
               f"kernel {flop / ms / 1e9:.2f} useful TFLOP/s; "
-              f"{ref_name}/kernel {query_field_ms / ms:.2f}x")
+              f"weights read from L2 {l2_tb_per_s:.2f} TB/s ({tiles} tiles x "
+              f"{stream_bytes / 1e6:.2f} MB); {ref_name}/kernel {query_field_ms / ms:.2f}x")
         if "plain" in q:
             pp_rows[name] = dict(max_abs_err=errs["twin"][1], median_abs_err=errs["twin"][0],
                                  ms=ms, query_mlpnet_ms=query_field_ms, pack_ms=pack_ms,
-                                 **bnd, useful_tflops=flop / ms / 1e9)
+                                 **bnd, share_of_bound=bnd["bound_ms"] / ms,
+                                 l2_weight_tb_per_s=l2_tb_per_s, useful_tflops=flop / ms / 1e9)
         if name == "fine":
             record = dict(max_abs_err=errs["twin"][1], median_abs_err=errs["twin"][0],
                           max_abs_err_query_field=errs["query_field"][1], ms=ms,
                           plain_ms=plain_ms, query_field_ms=query_field_ms, **bnd,
                           bound_unit="3xTF32 on tensor cores: 3 passes at 495 TFLOP/s",
                           bound_fp32_simt_ms=fp32_simt_ms, pack_ms=pack_ms,
-                          unpacked_ms=unpacked_ms,
+                          unpacked_ms=unpacked_ms, share_of_bound=bnd["bound_ms"] / ms,
+                          l2_weight_tb_per_s=l2_tb_per_s,
                           useful_tflops=flop / ms / 1e9, library_ms=None)
     record["nerfpp"] = pp_rows
     return record, launches

@@ -16,10 +16,12 @@ inverted-sphere points. The kernel returns the MLPNet's raw heads too; its
 caller applies ``abs`` to sigma and a sigmoid to rgb. The point width is a
 template parameter of the kernel, read from ``pts.shape[-1]``.
 
-The kernel is ``csrc/fused_mlp.cu``: a 64-point tile per block of two
-warpgroups, activations in shared memory, the trunk, feature and views
-products on the tensor cores (``wgmma``) in 3xTF32 (its header says what
-bounds it and why 3xTF32). It reads the weights as one buffer that
+The kernel is ``csrc/fused_mlp.cu``: a 64-point tile per block, activations
+in shared memory, the trunk, feature and views products on the tensor cores
+(``wgmma``) in 3xTF32 by two consumer warpgroups that take turns, the
+weights streamed through a shared-memory ring by a producer warpgroup's
+TMA bulk copies (its header says what bounds it, why 3xTF32 and how the
+ring is paced). It reads the weights as one buffer that
 :func:`pack_weights` lays out; a caller that serves one model many times
 packs once (:class:`PackedWeights`) and passes the buffer as ``packed=``.
 The launch is the registered operator

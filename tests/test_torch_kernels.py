@@ -874,6 +874,27 @@ class TestK4OnCard:
             searchsorted_cuda.searchsorted_cuda(a, v.cpu())
 
 
+def _mlpnet_inputs(n, s, dim, cfg, *, seed=0, device="cpu"):
+    """A NeRF++ MLPNet on points ``dim`` wide at ``cfg``'s frequencies, its
+    biases drawn too, and ``(n, s, dim)`` points as NeRF++ hands them: fg
+    inside the unit sphere, bg ``(x/r, y/r, z/r, 1/r)``; unit view
+    directions."""
+    gen = torch.Generator().manual_seed(seed)
+    pp_cfg = nerfpp.NerfPPConfig(max_freq_log2=cfg.multires,
+                                 max_freq_log2_viewdirs=cfg.multires_views)
+    net = nerfpp.init_mlpnet(pp_cfg, dim, generator=gen, device="cpu")
+    layers = [*net["base"], *(v for k, v in net.items() if k != "base")]
+    for layer in layers:
+        layer["b"] = torch.randn(layer["b"].shape, generator=gen) * 0.1
+    for layer in layers:
+        layer["w"], layer["b"] = layer["w"].to(device), layer["b"].to(device)
+    x = torch.nn.functional.normalize(torch.randn(n, s, 3, generator=gen), dim=-1)
+    r = torch.rand(n, s, 1, generator=gen)
+    pts = x * r if dim == 3 else torch.cat([x, r], -1)
+    vd = torch.nn.functional.normalize(torch.randn(n, 3, generator=gen), dim=-1)
+    return net, pts.to(device), vd.to(device)
+
+
 def assert_field_close(got, want):
     """3xTF32 products (about 2^-22 of each left out) and another summation
     order over K <= 320 in each of ten layers: median |err| under 1e-5, max
@@ -921,6 +942,76 @@ class TestK3OnCard:
         report = (_build.BUILD_DIR / "fused_mlp.log").read_text()
         spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", report)
         assert spills and all(st == "0" and ld == "0" for st, ld in spills), report
+
+    def test_repeated_launches_bit_identical(self, cuda):
+        """20 launches at the fine serving shape give the same bits: a ring
+        stage refilled before every consumer warp released it would show
+        as a run-to-run difference."""
+        cfg = nerf.NeRFConfig()
+        params, pts, vd = _field_inputs(8192, 128, cfg, device=cuda)
+        packed = mlp_cuda.pack_weights(params, cfg)[0]
+        with fp32_inference():
+            outs = [mlp_cuda.fused_query_field(params, cfg, pts, vd, packed=packed)
+                    for _ in range(20)]
+        torch.cuda.synchronize()
+        assert all(torch.equal(out, outs[0]) for out in outs[1:])
+        assert bool(torch.isfinite(outs[0]).all())
+
+    @pytest.mark.parametrize("dim", mlp_cuda.POINT_DIMS)
+    def test_tile_independence(self, cuda, dim):
+        """The same rays give the same bits wherever their points fall in
+        the tiles and however many tiles the grid has: K3_RAGGED's 1,027
+        rays of 33 samples (530 tiles, the last of 35 points) against the
+        same rays at the end of 8,192 (4,224 tiles, 32 waves, starting 29
+        points into a tile), 200 of them alone (104 tiles, fewer than the
+        SMs) and one alone (one tile)."""
+        cfg = nerf.NeRFConfig()
+        params, pts, vd = _mlpnet_inputs(8192, 33, dim, cfg, device=cuda)
+        packed = mlp_cuda.pack_weights(params, cfg, dim)[0]
+        rays = slice(8192 - 1027, 8192)
+
+        def k3(p, v):
+            with fp32_inference():
+                return mlp_cuda.fused_query_field(params, cfg, p.contiguous(), v.contiguous(),
+                                                  packed=packed)
+
+        ragged = k3(pts[rays], vd[rays])
+        many_waves = k3(pts, vd)[rays]
+        few_tiles = k3(pts[rays][100:300], vd[rays][100:300])
+        one_tile = k3(pts[rays][7:8], vd[rays][7:8])
+        torch.cuda.synchronize()
+        assert torch.equal(many_waves, ragged)
+        assert torch.equal(few_tiles, ragged[100:300])
+        assert torch.equal(one_tile, ragged[7:8])
+
+    @pytest.mark.parametrize("multires,multires_views", [(10, 4), (16, 16)])
+    @pytest.mark.parametrize("dim", mlp_cuda.POINT_DIMS)
+    def test_every_build_matches_plain_twin(self, cuda, dim, multires, multires_views):
+        """Each of the four builds (points 3 or 4 wide, 10/4 or 16/16: four
+        stages flushed every 32 rows, or three flushed every 16) on an
+        MLPNet with drawn biases, within the twin's float32 limits; 10/4 at
+        width 4 is the bg layout at a block's whole shared memory."""
+        cfg = nerf.NeRFConfig(multires=multires, multires_views=multires_views)
+        params, pts, vd = _mlpnet_inputs(517, 37, dim, cfg, device=cuda)
+        with fp32_inference():
+            got = mlp_cuda.fused_query_field(params, cfg, pts, vd)
+            want = mlp_cuda.fused_query_field_plain(params, cfg, pts, vd)
+        torch.cuda.synchronize()
+        assert_field_close(got, want)
+
+    def test_shared_memory_within_a_block(self, cuda):
+        """The four layouts' activations and ring (barriers in the
+        activations' padding) fit a block's 232,448 bytes; the 10/4 layouts
+        hold four 32 KB stages, the 16/16 ones three."""
+        stage = 16 * 256 * 2 * 4
+        for dim in mlp_cuda.POINT_DIMS:
+            for multires, multires_views, stages in ((10, 4, 4), (16, 16, 3)):
+                cfg = nerf.NeRFConfig(multires=multires, multires_views=multires_views)
+                pe = mlp_cuda._pad_k(mlp_cuda._encoded(multires, dim))
+                ve = mlp_cuda._pad_k(mlp_cuda._encoded(multires_views))
+                act = (256 + max(pe, ve)) * 72 * 4
+                got = mlp_cuda.shared_memory_bytes(cfg, dim)
+                assert got == act + stages * stage <= 232_448, (dim, multires, got)
 
     def test_rejects_on_card(self, cuda):
         cfg = nerf.NeRFConfig()
