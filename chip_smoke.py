@@ -10,10 +10,10 @@ the JAX package. Phases, each of which exits non-zero when it fails:
 
 1. The card's name and power limit, the versions, and the kernels' build
    from ``scnerf_tpu_torch/csrc`` (timed; one ``nvcc`` per library, all
-   started together): K3's and K4's ctypes libraries, and K1's and K2's
-   operator library (``sample_pdf.cu`` with ``sample_pdf_op.cpp``, against
-   torch's headers). Each kernel's host route (registered operator or
-   ctypes) and the path of the library it loaded.
+   started together): the plain-C libraries of K1 and K2
+   (``sample_pdf.cu``), K3 and K4. Each kernel's host route (a registered
+   operator over ctypes, or ctypes from K4's wrapper) and the path of the
+   library it loaded.
 2. K1, the inverse-CDF CUDA kernel, against its plain PyTorch twin on the
    card at the serving shapes (8192 rays; 63, 62 and 64 bins; 64 samples;
    deterministic and random u): median |err| < 1e-6, under 0.1% of samples
@@ -357,8 +357,7 @@ PP_PIXEL_REQUESTS = (1000, 65536)
 PP_CPU_RAYS = 512
 PP_FISHEYE_K = (-0.1, 0.03)  # bench.py's fisheye camera
 
-SOURCES = ("searchsorted", "fused_mlp")  # K4 and K3, through ctypes
-OPS_SOURCES = ("sample_pdf",)  # K1 and K2, registered operators
+SOURCES = ("sample_pdf", "searchsorted", "fused_mlp")  # K1 and K2, K4, K3
 # K4: the resamplers' (rows, CDF entries, queries), ragged shapes, ties.
 SEARCH_SHAPES = ((BATCH, 63, 64), (PP_BATCH, 63, 128))
 SEARCH_RAGGED = ((1, 1, 1), (5, 17, 33), (1027, 200, 100))
@@ -3941,12 +3940,10 @@ def phase_export(dev, card, root):
     spec, record = {}, {}
     for name, (fn, specs, batch, inputs) in cases.items():
         path = os.path.join(root, f"{name}.pt2")
-        reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         data = export_serving_fn(fn, specs, path, device=dev)
         export_s = time.perf_counter() - t0
-        traced = launch_counts()
         files = []
         for i, x in enumerate(inputs):
             files.append(os.path.join(root, f"{name}_in{i}.npy"))
@@ -3955,8 +3952,7 @@ def phase_export(dev, card, root):
                       "out": os.path.join(root, f"{name}_out.npz")}
         record[name] = {"export_s": export_s, "bytes": len(data)}
         print(f"  {name}: exported in {export_s:.2f} s, {len(data)} bytes "
-              f"({len(data) / 2**20:.2f} MiB), batch {batch}; wrapper counts while tracing "
-              f"(not launches): K1 {traced['K1']}, K2 {traced['K2']}")
+              f"({len(data) / 2**20:.2f} MiB), batch {batch}")
 
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, "-c", LOADER, os.path.dirname(os.path.abspath(__file__)),
@@ -4520,25 +4516,21 @@ def main() -> int:
     print(f"  python {sys.version.split()[0]}, torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(SOURCES) + len(OPS_SOURCES)) as pool:
-        builds = ([pool.submit(_build.build, name) for name in SOURCES]  # one nvcc each
-                  + [pool.submit(_build.build_ops, name) for name in OPS_SOURCES])
-        libs = [b.result() for b in builds]
+    with concurrent.futures.ThreadPoolExecutor(len(SOURCES)) as pool:
+        libs = list(pool.map(_build.build, SOURCES))  # one nvcc each
     for name in SOURCES:
         _build.load(name)
-    for name in OPS_SOURCES:
-        _build.load_ops(name)
     print(f"  built {', '.join(lib.name for lib in libs)} in {time.perf_counter() - t0:.2f} s")
-    routes = {"K1, K2": ("registered operators torch.ops.scnerf_tpu_torch.sample_pdf[_fwd]",
-                         _build.ops_library_path("sample_pdf")),
+    routes = {"K1, K2": ("registered operators torch.ops.scnerf_tpu_torch.sample_pdf[_fwd] over "
+                         "ctypes", "sample_pdf"),
               "K3": ("registered operator torch.ops.scnerf_tpu_torch.fused_query_field over "
-                     "ctypes", _build.library_path("fused_mlp")),
-              "K4": ("ctypes", _build.library_path("searchsorted"))}
-    for kernels, (route, lib) in routes.items():
-        print(f"  {kernels}: {route}, {lib}")
-    for name in (*SOURCES, *(f"{name}_op" for name in OPS_SOURCES)):
+                     "ctypes", "fused_mlp"),
+              "K4": ("ctypes", "searchsorted")}
+    for kernels, (route, name) in routes.items():
+        print(f"  {kernels}: {route}, {_build.library_path(name)}")
+    for name in SOURCES:
         log = _build.BUILD_DIR / f"{name}.log"
-        if log.exists():  # ptxas's report; not the host compiler's warnings
+        if log.exists():  # ptxas's report
             lines = [line for line in log.read_text().splitlines()
                      if line.startswith("ptxas") or "spill" in line]
             print(f"  {name}: " + "\n  ".join(lines))
@@ -4610,7 +4602,7 @@ def main() -> int:
     print(json.dumps({"kernels": [{
         "name": "sample_pdf",
         "route": "cuda",
-        "host_route": "operator",
+        "host_route": "operator over ctypes",
         "source": "scnerf_tpu_torch/csrc/sample_pdf.cu",
         "replaces": "scnerf_tpu/kernels/pdf_pallas.py:66",
         "launches": launches,
@@ -4628,7 +4620,7 @@ def main() -> int:
     }, {
         "name": "sample_pdf_nerfpp",
         "route": "cuda",
-        "host_route": "operator",
+        "host_route": "operator over ctypes",
         "source": "scnerf_tpu_torch/csrc/sample_pdf.cu",
         "replaces": "scnerf_tpu/kernels/pdf_pallas.py:194",
         "launches": pp_launches,

@@ -10,10 +10,11 @@ the LLFF NDC warp with the learned focal), exports it with ``torch.export``
 on ``--device`` (default ``cuda``; without a card it exits with code 2) with
 the weights as constants, and writes ``<out>.json`` with the artifact's
 calling convention: the JAX CLI's keys, plus ``device`` and
-``operator_library`` (null, or the library ``kernels._build.load_ops``
-builds and the registered operators of it that the artifact calls, which
-``serve.load_serving_fn`` loads before a CUDA artifact runs). The default
-artifact is ``<expdir>/serve.pt2``.
+``operator_library`` (null, or the path of K1's and K2's plain-C library,
+``kernels._build.build("sample_pdf")``, where the artifact calls the port's
+registered operators, as a CUDA artifact does; their CUDA implementations
+load it at the first launch). The default artifact is
+``<expdir>/serve.pt2``.
 """
 from __future__ import annotations
 
@@ -48,6 +49,7 @@ def main(argv=None):
     from scnerf_tpu_torch.cli.render import _restore
     from scnerf_tpu_torch.cli.train import device_or_exit, parse_overrides
     from scnerf_tpu_torch.core.config import load_experiment
+    from scnerf_tpu_torch.kernels import _build
     from scnerf_tpu_torch.serve import artifact_operators, export_serving_fn
 
     device = device_or_exit(args.device, "scnerf_tpu_torch.cli.export")
@@ -102,7 +104,7 @@ def main(argv=None):
 
     data = export_serving_fn(fn, specs, path=out_path, device=device)
     operators = artifact_operators(torch.export.load(io.BytesIO(data)))
-    library = {"name": "sample_pdf", "operators": operators} if operators else None
+    library = str(_build.build("sample_pdf")) if operators else None
     meta.update(batch=args.batch, step=int(exp.state.step), bytes=len(data),
                 expname=cfg.logging.expname, device=str(device), operator_library=library)
     with open(out_path + ".json", "w") as f:

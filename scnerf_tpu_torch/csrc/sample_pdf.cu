@@ -16,6 +16,11 @@
 //   width = bins[above] - bins[below]   (+ eps for NeRF++)
 //   out = bins[below] + (u - cdf[below]) / denom * width
 // Contract: weights >= 0 and finite, as compositing gives them.
+// Built by kernels/_build.py into a library with a plain C interface (the
+// extern "C" entries at the end); the CUDA implementations of the registered
+// operators torch.ops.scnerf_tpu_torch.sample_pdf (K1) and sample_pdf_fwd
+// (K2), defined in kernels/pdf_cuda.py, check the operands, allocate the
+// outputs and call the entries through ctypes on the current stream.
 //
 // What bounds it: memory. Per ray it reads (2B - 1 + S) floats and writes S
 // (K2 also S counts, and B CDF entries when asked): a call at the serving

@@ -23,19 +23,22 @@ the CDF.
 
 Both kernels are instantiations of one template in ``csrc/sample_pdf.cu``
 (one warp per ray, a binary search over the CDF; its header says what bounds
-it and how the design answers), launched through registered PyTorch
-operators. Their schemas and fake (shape-only) implementations are defined
-here, at import, so that ``torch.export`` and ``meta`` tensors can trace
-them anywhere; their CUDA implementations (``csrc/sample_pdf_op.cpp``: the
-checks, the outputs' allocation and the launch in C++, behind the
-dispatcher) are built and loaded at first use by ``_build.load_ops``. No CPU
-implementation is registered. The tensor's device decides the route: a CUDA
-tensor always goes to the operator (injected ``u`` included) or raises, a CPU
-tensor takes the twin after the same checks in Python. There is no fallback
-from one to the other.
+it and how the design answers), built into a plain-C library and launched
+through registered PyTorch operators, as K3 is (``mlp_cuda.py``). Their
+schemas, fake (shape-only) implementations and CUDA implementations are
+defined here, at import, so that ``torch.export`` and ``meta`` tensors can
+trace them anywhere and a loaded program that calls them needs only this
+module: each CUDA implementation checks its operands
+(:func:`_check_operands`), allocates the outputs and launches the library's
+entry on the current stream through ctypes (``_build.launch``); the library
+is built and loaded at the first launch. No CPU implementation is
+registered. The tensor's device decides the route: a CUDA tensor always
+goes to the operator (injected ``u`` included) or raises, a CPU tensor takes
+the twin after the same checks. There is no fallback from one to the other.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import torch
@@ -48,16 +51,15 @@ from scnerf_tpu_torch.train.profiling import span
 MAX_BINS = 1024
 VARIANTS = ("nerf", "nerfpp")
 
-# Kernel launches in this process, K1's and K2's; each wrapper adds one per
-# launch and nowhere else, so a run can show that its main path went through
-# the kernel.
+# Kernel launches in this process, K1's and K2's; the operators' CUDA
+# implementations add one per launch and nowhere else, so a run can show that
+# its main path went through the kernel, launches inside a loaded serving
+# artifact included.
 launches = 0
 diff_launches = 0
 cdf_launches = 0  # the K2 launches that wrote the CDF (a part of diff_launches)
 
-# The operators' schemas. ``csrc/sample_pdf_op.cpp`` registers only their
-# CUDA implementations (``TORCH_LIBRARY_IMPL``): a second ``TORCH_LIBRARY``
-# of the namespace would fail when the library loads.
+# The operators' schemas; ``mlp_cuda.py`` adds K3's to the namespace.
 OPS_NAMESPACE = "scnerf_tpu_torch"
 _LIB = torch.library.Library(OPS_NAMESPACE, "DEF")
 _LIB.define("sample_pdf(Tensor bins, Tensor weights, Tensor u) -> Tensor")
@@ -77,12 +79,56 @@ def _sample_pdf_fwd_fake(bins, weights, u, variant, with_cdf):
 
 
 @functools.cache
-def _ops():
-    """K1's and K2's registered operators (``csrc/sample_pdf_op.cpp``), their
-    library built and loaded at first use."""
-    _build.load_ops("sample_pdf")
-    ns = torch.ops.scnerf_tpu_torch
-    return ns.sample_pdf.default, ns.sample_pdf_fwd.default
+def _entry(name: str):
+    """``csrc/sample_pdf.cu``'s entry ``name``: ``scnerf_sample_pdf(bins,
+    weights, u, out, n_rays, n_bins, n_samples, stream)`` (K1), or
+    ``scnerf_sample_pdf_fwd_<variant>(bins, weights, u, out, inds, cdf,
+    n_rays, n_bins, n_samples, stream)`` (K2)."""
+    fn = getattr(_build.load("sample_pdf"), name)
+    pointers = 4 if name == "scnerf_sample_pdf" else 6
+    fn.argtypes = [ctypes.c_void_p] * pointers + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _sample_pdf_cuda(bins, weights, u):
+    """K1's operator on the card: the kernel launched on the current stream,
+    not synchronised, after the checks (every route, a loaded artifact's
+    included, passes through)."""
+    global launches
+    _check_operands("sample_pdf_core", bins, weights, u)
+    out = torch.empty_like(u)
+    (n, b), s = bins.shape, u.shape[1]
+    err = _build.launch(_entry("scnerf_sample_pdf"), bins.get_device(), bins.data_ptr(),
+                        weights.data_ptr(), u.data_ptr(), out.data_ptr(), n, b, s)
+    if err != 0:
+        raise RuntimeError(f"sample_pdf kernel launch failed: CUDA error {err}")
+    launches += 1
+    return out
+
+
+def _sample_pdf_fwd_cuda(bins, weights, u, variant, with_cdf):
+    """K2's operator on the card, as K1's; ``inds`` always, ``cdf`` only
+    when ``with_cdf``."""
+    global diff_launches, cdf_launches
+    _check_variant(variant)
+    _check_operands("sample_pdf_fwd", bins, weights, u)
+    out = torch.empty_like(u)
+    inds = torch.empty_like(u, dtype=torch.int32)
+    cdf = torch.empty_like(bins) if with_cdf else None
+    (n, b), s = bins.shape, u.shape[1]
+    err = _build.launch(_entry(f"scnerf_sample_pdf_fwd_{variant}"), bins.get_device(),
+                        bins.data_ptr(), weights.data_ptr(), u.data_ptr(), out.data_ptr(),
+                        inds.data_ptr(), None if cdf is None else cdf.data_ptr(), n, b, s)
+    if err != 0:
+        raise RuntimeError(f"sample_pdf_fwd kernel launch failed: CUDA error {err}")
+    diff_launches += 1
+    cdf_launches += with_cdf
+    return out, inds, cdf
+
+
+_LIB.impl("sample_pdf", _sample_pdf_cuda, "CUDA")
+_LIB.impl("sample_pdf_fwd", _sample_pdf_fwd_cuda, "CUDA")
 
 
 def sample_pdf_plain(bins: torch.Tensor, weights: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
@@ -90,11 +136,18 @@ def sample_pdf_plain(bins: torch.Tensor, weights: torch.Tensor, u: torch.Tensor)
     return sample_pdf(None, bins, weights, u.shape[-1], u=u, variant="nerf")
 
 
-def _check_off_card(name: str, bins: torch.Tensor, weights: torch.Tensor,
+def _check_variant(variant: str) -> None:
+    if variant not in VARIANTS:
+        raise ValueError(f"variant must be one of {VARIANTS}, got {variant!r}")
+
+
+def _check_operands(name: str, bins: torch.Tensor, weights: torch.Tensor,
                     u: torch.Tensor) -> None:
-    """The checks of a call whose ``bins`` is not on the card: what the
-    operator checks for CUDA tensors (``csrc/sample_pdf_op.cpp``), with the
-    same exception types; raises unless all three lie on the CPU."""
+    """Raise on operands K1 or K2 (``name``'s) does not take, on either
+    route: not 2-D, shapes that disagree, not float32, not all on one CPU or
+    CUDA device; on the card also what the kernel does not take: ``B``
+    outside ``[2, MAX_BINS]``, an operand not contiguous, 2^30 rays or more
+    or 2^31 samples or more."""
     if bins.ndim != 2 or weights.ndim != 2 or u.ndim != 2:
         raise ValueError(
             f"expected 2D bins, weights, u; got {tuple(bins.shape)}, "
@@ -111,8 +164,18 @@ def _check_off_card(name: str, bins: torch.Tensor, weights: torch.Tensor,
     devices = {bins.device, weights.device, u.device}
     if len(devices) != 1:
         raise ValueError(f"bins, weights and u lie on different devices: {devices}")
-    if bins.device.type != "cpu":
+    if bins.device.type == "cpu":
+        return
+    if bins.device.type != "cuda":
         raise ValueError(f"{name} runs on cpu or cuda, not {bins.device}")
+    if not 2 <= b <= MAX_BINS:
+        raise ValueError(f"the kernel takes 2 <= B <= {MAX_BINS} bins, got {b}")
+    for arg, x in (("bins", bins), ("weights", weights), ("u", u)):
+        if not x.is_contiguous():
+            raise ValueError(f"{arg} must be contiguous")
+    if n > 2**30 - 1 or u.shape[1] > 2**31 - 1:
+        raise ValueError(f"the kernel takes fewer than 2^30 rays and 2^31 samples, got {n} "
+                         f"and {u.shape[1]}")
 
 
 def _forward_only(name: str, bins: torch.Tensor, weights: torch.Tensor,
@@ -140,14 +203,11 @@ def sample_pdf_core(bins: torch.Tensor, weights: torch.Tensor, u: torch.Tensor) 
       contiguous and ``2 <= B <= 1024``. Forward only: an input that
       requires grad under grad mode raises ``ValueError``.
     """
-    global launches
     _forward_only("sample_pdf_core", bins, weights, u)
     if not bins.is_cuda:
-        _check_off_card("sample_pdf_core", bins, weights, u)
+        _check_operands("sample_pdf_core", bins, weights, u)
         return sample_pdf_plain(bins, weights, u)
-    out = _ops()[0](bins, weights, u)
-    launches += 1
-    return out
+    return torch.ops.scnerf_tpu_torch.sample_pdf.default(bins, weights, u)
 
 
 def sample_pdf_fwd(bins: torch.Tensor, weights: torch.Tensor, u: torch.Tensor,
@@ -162,18 +222,13 @@ def sample_pdf_fwd(bins: torch.Tensor, weights: torch.Tensor, u: torch.Tensor,
       ``torch.ops.scnerf_tpu_torch.sample_pdf_fwd``, launched on the current
       stream, not synchronised. Forward only, as :func:`sample_pdf_core`.
     """
-    global diff_launches, cdf_launches
     _forward_only("sample_pdf_fwd", bins, weights, u)
     if not bins.is_cuda:
-        if variant not in VARIANTS:
-            raise ValueError(f"variant must be one of {VARIANTS}, got {variant!r}")
-        _check_off_card("sample_pdf_fwd", bins, weights, u)
+        _check_variant(variant)
+        _check_operands("sample_pdf_fwd", bins, weights, u)
         out, inds, cdf = inverse_cdf(bins, weights, u, variant)
         return out, inds, cdf if with_cdf else None
-    result = _ops()[1](bins, weights, u, variant, with_cdf)
-    diff_launches += 1
-    cdf_launches += with_cdf
-    return result
+    return torch.ops.scnerf_tpu_torch.sample_pdf_fwd.default(bins, weights, u, variant, with_cdf)
 
 
 def sample_pdf_diff_backward(g, bins, weights, u, inds, cdf, variant: str):

@@ -324,25 +324,21 @@ def load_serving_fn(path_or_bytes) -> Callable:
     """Load an artifact of :func:`export_serving_fn`; returns
     ``fn(*tensors) -> {maps}``.
 
-    Needs only torch and the operator libraries, none of the model code: the
-    schemas of K1 and K2 come from ``kernels/pdf_cuda.py`` and, for a CUDA
-    artifact that calls them, their library is built (if needed) and loaded
-    by ``kernels._build.load_ops``; K3's schema and its CUDA implementation
-    come from ``kernels/mlp_cuda.py``, whose plain-C library loads at its
-    first launch. A CUDA artifact needs a card to load.
+    Needs only torch and the kernel modules, none of the model code:
+    importing ``kernels/pdf_cuda.py`` and ``kernels/mlp_cuda.py`` registers
+    the schemas and the CUDA implementations of K1's, K2's and K3's
+    operators, whose plain-C libraries load at their first launch. A CUDA
+    artifact needs a card to load.
     Each call runs under :func:`fp32_inference`, since export does not
     record the TF32 flags, and restores the caller's after. ``fn.exported``
     is the ``ExportedProgram``, ``fn.operators`` the operators it calls.
     """
-    from scnerf_tpu_torch.kernels import _build, mlp_cuda, pdf_cuda  # noqa: F401 (the schemas)
+    from scnerf_tpu_torch.kernels import mlp_cuda, pdf_cuda  # noqa: F401 (the operators)
 
     if isinstance(path_or_bytes, (bytes, bytearray)):
         path_or_bytes = io.BytesIO(bytes(path_or_bytes))
     program = torch.export.load(path_or_bytes)
     operators = artifact_operators(program)
-    if artifact_device(program).type == "cuda" and any(
-            op.startswith(f"{pdf_cuda.OPS_NAMESPACE}.sample_pdf") for op in operators):
-        _build.load_ops("sample_pdf")
     module = program.module()
 
     def fn(*args):

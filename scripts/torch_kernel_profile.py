@@ -22,12 +22,14 @@ their bound, and the device time of one copy that moves the same bytes
 (what one launch moving that much takes on the card, called back to back as
 here, where the rows stay in the 50 MB L2), and then the host's cost per
 call, ``perf_counter_ns`` around 1,000 calls with no synchronisation (3
-turns, median), of the wrapper (through its registered operator) and of
+turns, median), of the wrapper (through its registered operator, whose CUDA
+implementation launches the plain-C library through ctypes) and of
 ``torch.searchsorted`` on the same CDF rows and queries, in turns under one
 ``inference_mode`` block, as the renderers call them.
 
-The first line is the card's name and power limit; then ptxas's report for K3
-(registers, spills) and the dynamic shared memory a block of it takes.
+The first line is the card's name and power limit; then the three libraries'
+paths, ptxas's report for K3 (registers, spills) and the dynamic shared
+memory a block of it takes.
 Exits 1 without a card, or when the profiler sees no device time.
 """
 from __future__ import annotations
@@ -95,11 +97,10 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(0)
     cfg = NeRFConfig()
-    with concurrent.futures.ThreadPoolExecutor(3) as pool:  # one nvcc each
-        builds = [pool.submit(_build.build, "fused_mlp"), pool.submit(_build.build, "searchsorted"),
-                  pool.submit(_build.build_ops, "sample_pdf")]
-        for future in builds:
-            future.result()
+    sources = ("sample_pdf", "fused_mlp", "searchsorted")  # K1 and K2, K3, K4
+    with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:  # one nvcc each
+        for name, lib in zip(sources, pool.map(_build.build, sources)):
+            print(f"{name}: {lib}")
     print("K3 ptxas report (-Xptxas -v):")
     for line in (_build.BUILD_DIR / "fused_mlp.log").read_text().splitlines():
         if "registers" in line or "spill" in line:
@@ -110,7 +111,6 @@ def main() -> int:
     def rows(n, b):
         return torch.from_numpy(np.sort(rng.random((n, b)), -1).astype(np.float32)).to(dev)
 
-    print(f"K1/K2 operator library: {_build.load_ops('sample_pdf')}")
     with fp32_inference():
         for label, n, b, s in (("K1", 8192, 63, 64), ("K2", 4096, 63, 128)):
             bins = rows(n, b) * 4 + 2

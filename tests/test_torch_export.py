@@ -157,7 +157,7 @@ class TestOperatorFakes:
 
         buffer = io.BytesIO()
         torch.export.save(program, buffer)
-        monkeypatch.setattr(_build, "load_ops", lambda name: pytest.fail("built off the card"))
+        monkeypatch.setattr(_build, "load", lambda name: pytest.fail("built off the card"))
         loaded = tserve.load_serving_fn(buffer.getvalue())
         assert loaded.operators == ops
         assert tserve.artifact_device(loaded.exported).type == "cpu"

@@ -227,28 +227,21 @@ class TestBuild:
         assert "build/" in (REPO / ".gitignore").read_text().split()
         assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
 
-    def test_ops_library_named_by_both_sources_and_torch(self, tmp_path, monkeypatch):
-        """K1/K2's operator library: under build/kernels/, and named anew
-        when either source or torch's version changes."""
-        assert _build.ops_library_path("sample_pdf").parent == REPO / "build" / "kernels"
-        for suffix in (".cu", "_op.cpp"):
-            (tmp_path / f"sample_pdf{suffix}").write_bytes(
-                (_build.CSRC_DIR / f"sample_pdf{suffix}").read_bytes())
+    def test_library_named_anew_when_its_source_changes(self, tmp_path, monkeypatch):
+        (tmp_path / "sample_pdf.cu").write_bytes((_build.CSRC_DIR / "sample_pdf.cu").read_bytes())
         monkeypatch.setattr(_build, "CSRC_DIR", tmp_path)
-        names = [_build.ops_library_path("sample_pdf").name]
-        assert names[0].startswith("libsample_pdf_op_")
-        for suffix in (".cu", "_op.cpp"):
-            with open(tmp_path / f"sample_pdf{suffix}", "a") as f:
-                f.write("\n// changed\n")
-            names.append(_build.ops_library_path("sample_pdf").name)
-        monkeypatch.setattr(torch, "__version__", "0.0.0+other")
-        names.append(_build.ops_library_path("sample_pdf").name)
-        assert len(set(names)) == 4, names
+        before = _build.library_path("sample_pdf")
+        with open(tmp_path / "sample_pdf.cu", "a") as f:
+            f.write("\n// changed\n")
+        after = _build.library_path("sample_pdf")
+        assert before.parent == after.parent and before.name != after.name
+        assert after.name.startswith("libsample_pdf_") and after.suffix == ".so"
 
-    def test_ops_build_command(self, tmp_path, monkeypatch):
-        """One nvcc command: both sources, sm_90a, torch's C++ ABI flag and
-        headers, torch's libraries with an rpath, the output under the build
-        directory; the library is then in place."""
+    @pytest.mark.parametrize("name", ["sample_pdf", "fused_mlp", "searchsorted"])
+    def test_build_command(self, name, tmp_path, monkeypatch):
+        """One nvcc command of the one source for sm_90a, nothing of
+        torch's (no include, library or C++ ABI flag), the output under the
+        build directory; the report kept as the log; built once."""
         commands = []
 
         def run(cmd, **kwargs):
@@ -260,43 +253,58 @@ class TestBuild:
         monkeypatch.setattr(_build, "BUILD_DIR", build_dir)
         monkeypatch.setattr(_build, "find_nvcc", lambda: "/toolkit/cuda/bin/nvcc")
         monkeypatch.setattr(_build.subprocess, "run", run)
-        lib = _build.build_ops("sample_pdf")
+        lib = _build.build(name)
         (cmd,) = commands
-        assert cmd[0] == "/toolkit/cuda/bin/nvcc"
-        abi = [flag for flag in cmd if flag.startswith("-D_GLIBCXX_USE_CXX11_ABI=")]
-        assert abi == [f"-D_GLIBCXX_USE_CXX11_ABI={int(torch._C._GLIBCXX_USE_CXX11_ABI)}"]
+        assert cmd == ["/toolkit/cuda/bin/nvcc", *_build.NVCC_FLAGS, "-o", cmd[-2],
+                       str(_build.CSRC_DIR / f"{name}.cu")]
         assert "arch=compute_90a,code=sm_90a" in cmd and "-shared" in cmd
-        assert str(_build.CSRC_DIR / "sample_pdf.cu") in cmd
-        assert str(_build.CSRC_DIR / "sample_pdf_op.cpp") in cmd
-        assert "-I/toolkit/cuda/include" in cmd
-        from torch.utils import cpp_extension
-        for d in cpp_extension.include_paths():
-            assert f"-I{d}" in cmd
-        for d in cpp_extension.library_paths():
-            assert f"-L{d}" in cmd and f"-rpath,{d}" in cmd
-        assert set(_build.TORCH_LIBRARIES) <= set(cmd)
-        assert Path(cmd[cmd.index("-o") + 1]).parent == build_dir
-        assert lib == build_dir / _build.ops_library_path("sample_pdf").name and lib.exists()
-        assert (build_dir / "sample_pdf_op.log").read_text() == "ptxas info"
-        assert _build.build_ops("sample_pdf") == lib and len(commands) == 1  # built once
+        assert not [flag for flag in _build.NVCC_FLAGS
+                    if flag.startswith(("-I", "-L", "-l", "-D")) or "torch" in flag
+                    or "rpath" in flag or "ABI" in flag]
+        assert Path(cmd[-2]).parent == build_dir
+        assert lib == build_dir / _build.library_path(name).name and lib.exists()
+        assert (build_dir / f"{name}.log").read_text() == "ptxas info"
+        assert _build.build(name) == lib and len(commands) == 1  # built once
 
-    def test_failed_ops_build_raises(self, tmp_path, monkeypatch):
+    def test_failed_build_raises(self, tmp_path, monkeypatch):
         monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
         monkeypatch.setattr(_build, "find_nvcc", lambda: "/toolkit/cuda/bin/nvcc")
         monkeypatch.setattr(_build.subprocess, "run", lambda cmd, **kwargs:
-                            subprocess.CompletedProcess(cmd, 2, "", "error: no such header"))
-        with pytest.raises(RuntimeError, match="no such header"):
-            _build.build_ops("sample_pdf")
+                            subprocess.CompletedProcess(cmd, 2, "", "error: bad source"))
+        with pytest.raises(RuntimeError, match="bad source"):
+            _build.build("sample_pdf")
         assert not list(tmp_path.glob("*.so"))
+        assert (tmp_path / "sample_pdf.log").read_text() == "error: bad source"
 
-    def test_ops_build_without_nvcc_raises(self, tmp_path, monkeypatch):
+    def test_build_without_nvcc_raises(self, tmp_path, monkeypatch):
         import torch.utils.cpp_extension as cpp
 
         monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
         monkeypatch.setattr(_build.shutil, "which", lambda name: None)
         monkeypatch.setattr(cpp, "CUDA_HOME", None)
         with pytest.raises(RuntimeError, match="nvcc not found"):
-            _build.build_ops("sample_pdf")
+            _build.build("sample_pdf")
+        assert not list(tmp_path.iterdir())
+
+    def test_operators_registered_at_import(self):
+        """Importing ``pdf_cuda`` registers K1's and K2's CUDA
+        implementations with the dispatcher, with nothing built or
+        loaded."""
+        code = (
+            "import torch\n"
+            "from scnerf_tpu_torch.kernels import _build\n"
+            "def refuse(*args):\n"
+            "    raise AssertionError('built or loaded at import')\n"
+            "_build.load = _build.build = refuse\n"
+            "from scnerf_tpu_torch.kernels import pdf_cuda\n"
+            "for op in ('sample_pdf', 'sample_pdf_fwd'):\n"
+            "    name = 'scnerf_tpu_torch::' + op\n"
+            "    assert torch._C._dispatch_has_kernel_for_dispatch_key(name, 'CUDA'), name\n"
+            "    assert not torch._C._dispatch_has_kernel_for_dispatch_key(name, 'CPU'), name\n"
+        )
+        proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                              text=True, timeout=120)
+        assert proc.returncode == 0, proc.stderr
 
     @pytest.mark.parametrize("name", ["searchsorted", "fused_mlp"])
     def test_new_sources_named_alike(self, name):
@@ -444,14 +452,13 @@ def _cpu_calls():
 @pytest.mark.parametrize("kernel", ["K1", "K2", "K3", "K4"])
 def test_cpu_tensors_never_reach_the_launch_helper(kernel, monkeypatch):
     """The host launch paths (_build.launch: the raw stream, the device
-    guard; _build.load_ops: K1's and K2's operators) are the card's alone;
+    guard; _build.load: the kernels' libraries) are the card's alone;
     CPU tensors take the twin first."""
     def refuse(*args):
         raise AssertionError("the launch helper was called for CPU tensors")
 
     monkeypatch.setattr(_build, "launch", refuse)
-    monkeypatch.setattr(_build, "load_ops", refuse)
-    pdf_cuda._ops.cache_clear()
+    monkeypatch.setattr(_build, "load", refuse)
     out = _cpu_calls()[kernel]()
     assert out.device.type == "cpu"
 
