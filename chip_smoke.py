@@ -11,9 +11,9 @@ the JAX package. Phases, each of which exits non-zero when it fails:
 1. The card's name and power limit, the versions, and the kernels' build
    from ``scnerf_tpu_torch/csrc`` (timed; one ``nvcc`` per library, all
    started together): the plain-C libraries of K1 and K2
-   (``sample_pdf.cu``), K3 and K4. Each kernel's host route (a registered
-   operator over ctypes, or ctypes from K4's wrapper) and the path of the
-   library it loaded.
+   (``sample_pdf.cu``), K3, K4 and the early fields' cuBLASLt dense layer
+   (``dense_lt.cu``). Each host route (a registered operator over ctypes, or
+   ctypes from K4's wrapper) and the path of the library it loaded.
 2. K1, the inverse-CDF CUDA kernel, against its plain PyTorch twin on the
    card at the serving shapes (8192 rays; 63, 62 and 64 bins; 64 samples;
    deterministic and random u): median |err| < 1e-6, under 0.1% of samples
@@ -299,6 +299,14 @@ the JAX package. Phases, each of which exits non-zero when it fails:
     held against its plain twin with phase 2's criterion, the render's
     samples at u = 1 (its deterministic u's last) to lie in the last bin on
     both sides; each example's outcomes, ms a step and seconds printed.
+29. The serve path's early fields against their inference twins, run after
+    phase 9: fern's coarse field at (8192, 64, 3), Truck's level-0 fg and
+    bg nets at (4096, 64, 3) and (4096, 64, 4), with seeded weights, under
+    ``fp32_inference``. ``query_field_fused`` / ``query_mlpnet_fused`` must
+    be ``torch.equal`` to ``query_field`` / ``query_mlpnet``, launch no ReLU
+    (``clamp_min``) kernel and no concatenation but fern's ``[rgb, alpha]``;
+    ms a slice of both by CUDA events (in turns, 3 calls, median of 7) and
+    the ms a frame saved (24 fern slices, 131 Truck slices) printed.
 
 Each serving path, each of K3's and K4's own paths and each train path run
 with the kernels' launch counts set to 0 just before and read just after. The
@@ -357,7 +365,8 @@ PP_PIXEL_REQUESTS = (1000, 65536)
 PP_CPU_RAYS = 512
 PP_FISHEYE_K = (-0.1, 0.03)  # bench.py's fisheye camera
 
-SOURCES = ("sample_pdf", "searchsorted", "fused_mlp")  # K1 and K2, K4, K3
+# K1 and K2, K4, K3, and the early fields' cuBLASLt dense layer.
+SOURCES = ("sample_pdf", "searchsorted", "fused_mlp", "dense_lt")
 # K4: the resamplers' (rows, CDF entries, queries), ragged shapes, ties.
 SEARCH_SHAPES = ((BATCH, 63, 64), (PP_BATCH, 63, 128))
 SEARCH_RAGGED = ((1, 1, 1), (5, 17, 33), (1027, 200, 100))
@@ -1444,6 +1453,79 @@ def record_resample_inputs(run_step, state):
         renderer.sample_pdf_core = core
     require(len(calls) == 1, f"K1 called {len(calls)} times in one train step")
     return state, calls[0]
+
+
+def phase_early_fields(dev, card):
+    """Phase 29: the serve path's early fields, plain against their inference
+    twins, at the served shapes."""
+    from scnerf_tpu_torch.fields.encoding import positional_encoding
+    from scnerf_tpu_torch.fields.nerf import (NeRFConfig, init_nerf_mlp, query_field,
+                                              query_field_fused)
+    from scnerf_tpu_torch.fields.nerfpp import (NerfPPConfig, init_mlpnet, query_mlpnet,
+                                                query_mlpnet_fused)
+    from scnerf_tpu_torch.serve import fp32_inference
+    from torch.profiler import ProfilerActivity, profile
+
+    print("== phase 29: the early fields (fern's coarse field, Truck's level 0) against "
+          "their inference twins")
+    gen = torch.Generator().manual_seed(SEED)
+
+    def seeded(node):
+        if isinstance(node, list):
+            return [seeded(x) for x in node]
+        if "w" not in node:
+            return {k: seeded(v) for k, v in node.items()}
+        w = torch.randn(node["w"].shape, generator=gen) * (2.0 / node["w"].shape[0]) ** 0.5
+        return {"w": w.to(dev), "b": (torch.randn(node["b"].shape, generator=gen) * 0.1).to(dev)}
+
+    def inputs(n, s, dim):
+        pts = (torch.rand(n, s, dim, generator=gen) * 2 - 1).to(dev)
+        vd = torch.nn.functional.normalize(torch.randn(n, 3, generator=gen), dim=-1).to(dev)
+        return pts, vd
+
+    fields = {}
+    cfg = NeRFConfig()
+    mlp = seeded(init_nerf_mlp(cfg, device="cpu"))
+    pts, vd = inputs(BATCH, 64, 3)
+    fields["fern_coarse"] = (24, 1,
+                             lambda: (query_field(mlp, cfg, pts, vd),),
+                             lambda: (query_field_fused(mlp, cfg, pts, vd),))
+    pp_cfg = NerfPPConfig()
+    for name, dim in (("truck_l0_fg", 3), ("truck_l0_bg", 4)):
+        net = seeded(init_mlpnet(pp_cfg, dim, device="cpu"))
+        p, v = inputs(PP_BATCH, PP_CASCADE[0], dim)
+        ve = positional_encoding(v, pp_cfg.view_encoding)
+        fields[name] = (131, 0,
+                        functools.partial(query_mlpnet, net, pp_cfg, p, ve, dim),
+                        functools.partial(query_mlpnet_fused, net, pp_cfg, p, ve, dim))
+    record = {}
+    for name, (slices, cats_kept, plain, twin) in fields.items():
+        with fp32_inference():
+            want, got = plain(), twin()
+            equal = all(torch.equal(g, w) for g, w in zip(got, want))
+            times = in_turns({"plain": plain, "twin": twin}, 3, 7)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                twin()
+                torch.cuda.synchronize()
+        kernels = [e.name for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        relus = [k for k in kernels if "clamp" in k]
+        cats = [k for k in kernels if "CatArrayBatchedCopy" in k]
+        saved = times["plain"] - times["twin"]
+        record[name] = {"equal": equal, "plain_ms": times["plain"], "twin_ms": times["twin"],
+                        "kernels": len(kernels), "relu_kernels": len(relus),
+                        "cat_kernels": len(cats), "frame_ms_saved": saved * slices}
+        print(f"  {name}: torch.equal {equal}; ms a slice by events, "
+              f"plain {times['plain']:.3f}, twin {times['twin']:.3f} "
+              f"({saved / times['plain'] * 100:.1f}% less, {saved * slices:.1f} ms a frame of "
+              f"{slices} slices); the twin's {len(kernels)} kernels hold {len(relus)} ReLU and "
+              f"{len(cats)} concatenation passes")
+        require(equal, f"{name}: the twin is not bit for bit the plain field")
+        require(not relus, f"{name}: the twin launched a ReLU pass: {relus}")
+        require(len(cats) == cats_kept, f"{name}: the twin's concatenations {cats}")
+    print(f"  {card}")
+    return record
 
 
 def phase_train(dev, card, slice_):
@@ -4525,7 +4607,9 @@ def main() -> int:
                          "ctypes", "sample_pdf"),
               "K3": ("registered operator torch.ops.scnerf_tpu_torch.fused_query_field over "
                      "ctypes", "fused_mlp"),
-              "K4": ("ctypes", "searchsorted")}
+              "K4": ("ctypes", "searchsorted"),
+              "dense_into (cuBLASLt)": ("registered operator torch.ops.scnerf_tpu_torch."
+                                        "dense_into over ctypes", "dense_lt")}
     for kernels, (route, name) in routes.items():
         print(f"  {kernels}: {route}, {_build.library_path(name)}")
     for name in SOURCES:
@@ -4554,6 +4638,7 @@ def main() -> int:
     search_record, search_launches = phase_k4(dev)
     field_record, field_launches = phase_k3(model_cfg, queries, pp_cfg, pp_queries)
     field_record["nerfpp_serve_route_max_err"] = pp_k3_errs
+    field_record["early_fields"] = phase_early_fields(dev, card)
     del queries, pp_queries
 
     train_slice = make_slice(dev)

@@ -43,3 +43,24 @@ def positional_encoding(x: torch.Tensor, cfg: EncodingConfig) -> torch.Tensor:
     if cfg.include_input:
         enc = torch.cat([x, enc], dim=-1)
     return enc
+
+
+def positional_encoding_into(x: torch.Tensor, cfg: EncodingConfig,
+                             out: torch.Tensor) -> torch.Tensor:
+    """:func:`positional_encoding` of ``x (M, input_dim)`` written into
+    ``out (M, out_dim)``, a view with unit column stride (the first columns
+    of a wider buffer), with no concatenation: the same values, bit for bit.
+    Returns ``out``."""
+    if cfg.n_freqs == 0:
+        return out.copy_(x)
+    d = x.shape[-1]
+    sincos = out
+    if cfg.include_input:
+        out[:, :d].copy_(x)
+        sincos = out[:, d:]
+    freqs = freq_bands(cfg, device=x.device).to(x.dtype)
+    xb = x[:, None, :] * freqs[:, None]  # (M, F, D)
+    parts = sincos.unflatten(-1, (cfg.n_freqs, 2, d))
+    torch.sin(xb, out=parts[:, :, 0])
+    torch.cos(xb, out=parts[:, :, 1])
+    return out

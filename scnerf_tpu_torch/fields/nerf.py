@@ -11,6 +11,8 @@ XLA outside any kernel; autograd differentiates them for the train step.
 JAX's sample-chunked, rematerialised ``query_field_chunked`` is a memory lever
 with the same values; the port calls :func:`query_field` directly, serving
 and training alike (a fern train step peaks at a few GiB on an 80 GB card).
+:func:`query_field_fused` is its inference-only twin for the serve path,
+with the same values and no activation or concatenation pass of its own.
 """
 from __future__ import annotations
 
@@ -18,8 +20,10 @@ import dataclasses
 
 import torch
 
-from scnerf_tpu_torch.fields.encoding import EncodingConfig, positional_encoding
-from scnerf_tpu_torch.fields.mlp import dense, init_dense
+from scnerf_tpu_torch.fields.encoding import (EncodingConfig, positional_encoding,
+                                               positional_encoding_into)
+from scnerf_tpu_torch.fields.mlp import dense, dense_relu, init_dense, relu_trunk_fused
+from scnerf_tpu_torch.kernels.dense_lt import dense_into
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,3 +99,39 @@ def query_field(params: dict, cfg: NeRFConfig, pts: torch.Tensor,
         vd = viewdirs[..., None, :].expand(pts.shape)
         views_enc = positional_encoding(vd, cfg.view_encoding)
     return nerf_mlp_apply(params, cfg, pts_enc, views_enc)
+
+
+def query_field_fused(params: dict, cfg: NeRFConfig, pts: torch.Tensor,
+                      viewdirs: torch.Tensor | None = None) -> torch.Tensor:
+    """:func:`query_field` for inference, bit for bit: ``pts (N, S, 3)`` and
+    ``viewdirs (N, 3)`` -> raw ``(N, S, 4)``, with the same parameters and
+    the same matrix products over the same columns in the same order.
+
+    The trunk is ``mlp.relu_trunk_fused``: each ReLU layer's bias and ReLU
+    in its product's epilogue, the encoding and the skip layer's output
+    written into the skip input. The feature layer writes into the first
+    columns of the view branch's input, and the view directions, encoded
+    once per ray rather than once per sample, are copied into its last
+    columns. What stays: the alpha and rgb heads (``dense``) and their
+    ``(N, S, 4)`` concatenation, 16 bytes a point: alpha's product has one
+    column, which cuBLAS computes as a matrix-vector product and no
+    epilogue writes into a wider row. No autograd: the serve functions call it
+    under ``inference_mode``; training and the eval renders keep
+    :func:`query_field`.
+    """
+    lead = pts.shape[:-1]
+    x = pts.reshape(-1, pts.shape[-1])
+    h = relu_trunk_fused(params["pts"], cfg.skips, x, cfg.pos_encoding)
+    if not cfg.use_viewdirs:
+        return dense(params["output"], h).reshape(*lead, -1)
+    alpha = dense(params["alpha"], h)
+    width = params["feature"]["w"].shape[1]
+    views_in = x.new_empty((x.shape[0], width + cfg.view_encoding.out_dim))
+    dense_into(params["feature"], h, views_in[:, :width], relu=False)
+    rays = viewdirs.reshape(-1, viewdirs.shape[-1])
+    views_enc = positional_encoding_into(
+        rays, cfg.view_encoding, rays.new_empty((rays.shape[0], cfg.view_encoding.out_dim)))
+    views_in.view(*lead, -1)[..., width:].copy_(
+        views_enc.reshape(*viewdirs.shape[:-1], 1, -1))
+    h = dense_relu(params["views"], views_in)
+    return torch.cat([dense(params["rgb"], h), alpha], dim=-1).reshape(*lead, 4)

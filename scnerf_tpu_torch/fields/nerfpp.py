@@ -29,7 +29,8 @@ from typing import Callable
 import torch
 
 from scnerf_tpu_torch.fields.encoding import EncodingConfig, positional_encoding
-from scnerf_tpu_torch.fields.mlp import dense, init_dense
+from scnerf_tpu_torch.fields.mlp import dense, dense_relu, init_dense, relu_trunk_fused
+from scnerf_tpu_torch.kernels.dense_lt import dense_into
 from scnerf_tpu_torch.camera.model import take_rows
 from scnerf_tpu_torch.geometry.sphere import HUGE_NUMBER, TINY_NUMBER, depth2pts_outside
 from scnerf_tpu_torch.render.composite import cumprod_positive
@@ -103,6 +104,36 @@ def query_mlpnet(params: dict, cfg: NerfPPConfig, pts: torch.Tensor,
     pts_enc = positional_encoding(pts, cfg.pos_encoding(input_dim))
     ve = views_enc[..., None, :].expand(*pts_enc.shape[:-1], views_enc.shape[-1])
     return mlpnet_apply(params, cfg, pts_enc, ve)
+
+
+def query_mlpnet_fused(params: dict, cfg: NerfPPConfig, pts: torch.Tensor,
+                       views_enc: torch.Tensor, input_dim: int):
+    """:func:`query_mlpnet` for inference, bit for bit: ``pts (N, S,
+    input_dim)`` and ``views_enc (N, Cv)`` -> (rgb ``(N, S, 3)``, sigma
+    ``(N, S)``), with the same parameters and the same matrix products over
+    the same columns in the same order.
+
+    As ``nerf.query_field_fused``: the trunk is ``mlp.relu_trunk_fused``;
+    the remap layer writes into the first columns of the rgb branch's
+    input and ``views_enc`` is copied into its last columns, once per
+    sample, with no concatenation; the sigma and rgb heads stay ``dense``.
+    No autograd: the NeRF++ serve function calls it under
+    ``inference_mode``; training and the eval renders keep
+    :func:`query_mlpnet`.
+    """
+    lead = pts.shape[:-1]
+    x = pts.reshape(-1, input_dim)
+    skips = tuple(i for i in cfg.skips if i != cfg.depth - 1)
+    h = relu_trunk_fused(params["base"], skips, x, cfg.pos_encoding(input_dim))
+    sigma = torch.abs(dense(params["sigma"], h))[..., 0]
+    width = params["remap"]["w"].shape[1]
+    rgb_in = x.new_empty((x.shape[0], width + views_enc.shape[-1]))
+    dense_into(params["remap"], h, rgb_in[:, :width], relu=False)
+    del h
+    rgb_in.view(*lead, -1)[..., width:].copy_(views_enc[..., None, :])
+    hv = dense_relu(params["rgb0"], rgb_in)
+    rgb = torch.sigmoid(dense(params["rgb1"], hv))
+    return rgb.reshape(*lead, 3), sigma.reshape(lead)
 
 
 def init_nerfpp_net(cfg: NerfPPConfig, n_images: int = 0, autoexpo: bool = False, *,

@@ -35,6 +35,8 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+# Libraries a source links besides the CUDA runtime.
+LINK_FLAGS = {"dense_lt": ("-lcublasLt",)}
 
 
 def find_nvcc() -> str:
@@ -50,10 +52,15 @@ def find_nvcc() -> str:
     return nvcc
 
 
+def flags(name: str) -> tuple:
+    """``nvcc``'s flags for ``csrc/<name>.cu``."""
+    return NVCC_FLAGS + LINK_FLAGS.get(name, ())
+
+
 def library_path(name: str) -> Path:
     """The ctypes library of ``csrc/<name>.cu``."""
     source = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(source + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    digest = hashlib.sha256(source + " ".join(flags(name)).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}_{digest}.so"
 
 
@@ -65,7 +72,7 @@ def build(name: str) -> Path:
     if lib.exists():
         return lib
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+    cmd = [find_nvcc(), *flags(name), "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     proc = subprocess.run(cmd, capture_output=True, text=True)
     (BUILD_DIR / f"{name}.log").write_text(proc.stdout + proc.stderr)

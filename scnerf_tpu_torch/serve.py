@@ -83,18 +83,19 @@ def nerf_field_query(params: dict, model_cfg) -> Callable:
     computes): it is packed here (``mlp_cuda.PackedWeights``), and again
     only after one of its leaves changed in place or was replaced, so the
     queries read the weights ``params`` holds. The coarse MLP's queries, and every query
-    elsewhere (every CPU included), take ``query_field``. The coarse field
-    places the fine samples through the inverse CDF, which is steepest in
-    the bins that hold only the eps weight: there a change of one float32
-    rounding in the coarse output moves a fine sample across much of the
-    bin. So the coarse field keeps ``query_field``'s arithmetic, which the
-    eval renders (``render_chunked``) and training share, and the serve
-    function places its fine samples where they do. While a profiler
-    records, each query adds its points to the counter
-    ``serve.field_points``, and to ``serve.field_points_k3`` when it goes
-    through K3.
+    elsewhere (every CPU included), take ``query_field_fused``. The coarse
+    field places the fine samples through the inverse CDF, which is
+    steepest in the bins that hold only the eps weight: there a change of
+    one float32 rounding in the coarse output moves a fine sample across
+    much of the bin. So the coarse field keeps ``query_field``'s
+    arithmetic, which the eval renders (``render_chunked``) and training
+    share, bit for bit: ``query_field_fused`` only leaves out its ReLU and
+    concatenation passes. While a profiler records, each query adds its
+    points to the counter ``serve.field_points``, and to
+    ``serve.field_points_k3`` when it goes through K3 or to
+    ``serve.field_points_fused`` when it goes through the twin.
     """
-    from scnerf_tpu_torch.fields.nerf import query_field
+    from scnerf_tpu_torch.fields.nerf import query_field_fused
     from scnerf_tpu_torch.kernels import mlp_cuda
 
     fine = params.get("fine")
@@ -108,7 +109,8 @@ def nerf_field_query(params: dict, model_cfg) -> Callable:
         n = pts.shape[0] * pts.shape[1]
         count("serve.field_points", n)
         if pack is None or mlp is not fine:
-            return query_field(mlp, cfg, pts, viewdirs)
+            count("serve.field_points_fused", n)
+            return query_field_fused(mlp, cfg, pts, viewdirs)
         count("serve.field_points_k3", n)
         return mlp_cuda.fused_query_field(mlp, cfg, pts.contiguous(), viewdirs.contiguous(),
                                           packed=pack.get())
@@ -177,14 +179,16 @@ def nerfpp_field_query(level_params: list, model_cfg) -> Callable:
     ``views_enc``, and returns the raw heads, to which ``abs`` (sigma) and
     a sigmoid (rgb) are applied here as ``mlpnet_apply`` applies them. The
     earlier levels place the later levels' samples through K2's inverse CDF
-    (``nerf_field_query`` says why that keeps them on the plain route), so
-    they, and every query elsewhere (every CPU included), take
-    ``query_mlpnet``. While a profiler records, each query adds its points
-    to the counter ``serve.field_points``, and to ``serve.field_points_k3``
-    when it goes through K3.
+    (``nerf_field_query`` says why that keeps them on the plain
+    arithmetic), so they, and every query elsewhere (every CPU included),
+    take ``query_mlpnet_fused``, ``query_mlpnet``'s inference twin with the
+    same bits. While a profiler records, each query adds its points to the
+    counter ``serve.field_points``, and to ``serve.field_points_k3`` when it
+    goes through K3 or to ``serve.field_points_fused`` when it goes through
+    the twin.
     """
     from scnerf_tpu_torch.fields.nerf import NeRFConfig
-    from scnerf_tpu_torch.fields.nerfpp import query_mlpnet
+    from scnerf_tpu_torch.fields.nerfpp import query_mlpnet_fused
     from scnerf_tpu_torch.kernels import mlp_cuda
 
     kernel_cfg = NeRFConfig(depth=model_cfg.depth, width=model_cfg.width,
@@ -203,7 +207,8 @@ def nerfpp_field_query(level_params: list, model_cfg) -> Callable:
         count("serve.field_points", n)
         pack = next((p for m, p in packs if m is mlp), None)
         if pack is None:
-            return query_mlpnet(mlp, cfg, pts, views_enc, input_dim)
+            count("serve.field_points_fused", n)
+            return query_mlpnet_fused(mlp, cfg, pts, views_enc, input_dim)
         count("serve.field_points_k3", n)
         raw = mlp_cuda.fused_query_field(mlp, kernel_cfg, pts.contiguous(),
                                          views_enc[:, :3].contiguous(), packed=pack.get())
@@ -303,8 +308,8 @@ def export_serving_fn(fn: Callable, specs: Sequence[TensorSpec], path: str | Non
 
 
 def artifact_operators(program) -> list[str]:
-    """The port's registered operators (K1, K2, K3) that an exported program
-    calls."""
+    """The port's registered operators (K1, K2, K3 and ``dense_into``) that
+    an exported program calls."""
     from scnerf_tpu_torch.kernels import pdf_cuda
 
     prefix = pdf_cuda.OPS_NAMESPACE + "."
@@ -325,15 +330,16 @@ def load_serving_fn(path_or_bytes) -> Callable:
     ``fn(*tensors) -> {maps}``.
 
     Needs only torch and the kernel modules, none of the model code:
-    importing ``kernels/pdf_cuda.py`` and ``kernels/mlp_cuda.py`` registers
-    the schemas and the CUDA implementations of K1's, K2's and K3's
-    operators, whose plain-C libraries load at their first launch. A CUDA
+    importing ``kernels/pdf_cuda.py``, ``kernels/mlp_cuda.py`` and
+    ``kernels/dense_lt.py`` registers the schemas and the CUDA
+    implementations of K1's, K2's and K3's operators and of ``dense_into``,
+    whose plain-C libraries load at their first launch. A CUDA
     artifact needs a card to load.
     Each call runs under :func:`fp32_inference`, since export does not
     record the TF32 flags, and restores the caller's after. ``fn.exported``
     is the ``ExportedProgram``, ``fn.operators`` the operators it calls.
     """
-    from scnerf_tpu_torch.kernels import mlp_cuda, pdf_cuda  # noqa: F401 (the operators)
+    from scnerf_tpu_torch.kernels import dense_lt, mlp_cuda, pdf_cuda  # noqa: F401 (the operators)
 
     if isinstance(path_or_bytes, (bytes, bytearray)):
         path_or_bytes = io.BytesIO(bytes(path_or_bytes))

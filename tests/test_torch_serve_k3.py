@@ -2,7 +2,8 @@
 (``serve.py:nerf_field_query``, ``kernels/mlp_cuda.py``): the route, the
 packed weights kept per model, the registered operator and the counters.
 
-On the CPU the route is ``query_field``, so the serve function's maps are
+On the CPU the route is ``query_field_fused``, ``query_field``'s inference
+twin with the same bits, so the serve function's maps are
 bit for bit ``render_rays``' with its default field; the operator's schema
 and fake, the ``packed=`` checks and :class:`mlp_cuda.PackedWeights` run
 here too. The tests marked ``cuda`` hold the K3 route to the plain one on a
@@ -156,7 +157,8 @@ class TestCpuRoute:
         length = mlp_cuda.layout(cfg.multires, cfg.multires_views)["length"]
         assert seen[0][2] is seen[1][2] and seen[0][2].shape == (length,)
         assert counts == {"serve.field_points": 2 * 24 * (8 + 16),
-                          "serve.field_points_k3": 2 * 24 * 16}
+                          "serve.field_points_k3": 2 * 24 * 16,
+                          "serve.field_points_fused": 2 * 24 * 8}
         want = plain_maps(params, cfg, render_cfg, *rays, None)
         assert torch.equal(got["rgb"], want["rgb"])
 
@@ -370,6 +372,7 @@ class TestServeOnCard:
         profiling.RECORDER.clear()
         assert counts["serve.field_points"] == BATCH * (64 + 128)
         assert counts["serve.field_points_k3"] == BATCH * 128
+        assert counts["serve.field_points_fused"] == BATCH * 64
 
     def test_packs_the_fine_model_once(self, cuda, monkeypatch):
         cfg, params, render_cfg, rays = fern_slice(cuda)
@@ -400,6 +403,7 @@ class TestServeOnCard:
         data = serve.export_serving_fn(fn, serve.nerf_serve_specs(BATCH), device=cuda)
         loaded = serve.load_serving_fn(data)
         assert OP in loaded.operators and "scnerf_tpu_torch.sample_pdf.default" in loaded.operators
+        assert "scnerf_tpu_torch.dense_into.default" in loaded.operators  # the coarse field
         request = fern_rays(3 * BATCH - 100, seed=2)
         want = serve.RenderService(fn, BATCH, device=cuda)(*request)
         before = mlp_cuda.launches

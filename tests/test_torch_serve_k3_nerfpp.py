@@ -3,7 +3,8 @@
 and 4): the packed layout of a 4-D MLPNet, the operand checks, the route,
 the counters and the agreement with the benchmark's frozen reference.
 
-On the CPU every query takes ``query_mlpnet``, so the serve function's maps
+On the CPU every query takes ``query_mlpnet_fused``, ``query_mlpnet``'s
+inference twin with the same bits, so the serve function's maps
 are bit for bit ``render_rays_nerfpp``'s; the route as on the card runs here
 with K3's CPU twin behind the wrapper. The tests marked ``cuda`` hold K3 to
 ``mlpnet_apply`` at Truck's published widths, a served Truck slice to the
@@ -22,7 +23,7 @@ from scnerf_tpu_torch import serve
 from scnerf_tpu_torch.fields.encoding import EncodingConfig, positional_encoding
 from scnerf_tpu_torch.fields.nerf import NeRFConfig, init_nerf_mlp
 from scnerf_tpu_torch.fields.nerfpp import (NerfPPConfig, init_nerfpp_net, mlpnet_apply,
-                                            query_mlpnet)
+                                            query_mlpnet, query_mlpnet_fused)
 from scnerf_tpu_torch.kernels import mlp_cuda
 from scnerf_tpu_torch.render.nerfpp_renderer import NerfPPRenderConfig, render_rays_nerfpp
 from scnerf_tpu_torch.train import profiling
@@ -217,8 +218,9 @@ class TestCpuRoute:
     def test_last_level_through_k3_level_zero_through_query_mlpnet(self, monkeypatch):
         """The route as on the card, K3's CPU twin behind the wrapper: only
         the last level's fg (3-D) and bg (4-D) nets reach it, each with its
-        buffer packed once; level 0 takes ``query_mlpnet``; the counters
-        give 75.0%, Truck's share ((12 + 12) / 32 at cascade (4, 8))."""
+        buffer packed once; level 0 takes ``query_mlpnet``'s inference twin
+        (``query_mlpnet_fused``); the counters give 75.0%, Truck's share
+        ((12 + 12) / 32 at cascade (4, 8)), and the twin the other 25%."""
         from portbench.metrics import k3_point_share
 
         levels = seeded_levels(TRUCK, 2, "cpu")
@@ -232,10 +234,10 @@ class TestCpuRoute:
 
         def plain_query(mlp, *args):
             plain.append(mlp)
-            return query_mlpnet(mlp, *args)
+            return query_mlpnet_fused(mlp, *args)
 
         monkeypatch.setattr(mlp_cuda, "fused_query_field", recording)
-        monkeypatch.setattr("scnerf_tpu_torch.fields.nerfpp.query_mlpnet", plain_query)
+        monkeypatch.setattr("scnerf_tpu_torch.fields.nerfpp.query_mlpnet_fused", plain_query)
         render_cfg = NerfPPRenderConfig(cascade_samples=(4, 8), chunk=8)
         rays = truck_rays(8)
         fn = serve.make_nerfpp_serve_fn(levels, TRUCK, render_cfg)
@@ -255,7 +257,8 @@ class TestCpuRoute:
         assert seen[0][2] is seen[2][2] and seen[1][2] is seen[3][2]
         assert seen[1][2].shape == (mlp_cuda.layout(10, 4, 4)["length"],)
         assert counts == {"serve.field_points": 2 * 8 * (4 + 4 + 12 + 12),
-                          "serve.field_points_k3": 2 * 8 * (12 + 12)}
+                          "serve.field_points_k3": 2 * 8 * (12 + 12),
+                          "serve.field_points_fused": 2 * 8 * (4 + 4)}
         assert share == 75.0
         monkeypatch.undo()
         want = plain_maps(levels, TRUCK, render_cfg, *rays)
@@ -396,6 +399,7 @@ class TestServeOnCard:
         loaded = serve.load_serving_fn(data)
         assert OP in loaded.operators
         assert "scnerf_tpu_torch.sample_pdf_fwd.default" in loaded.operators
+        assert "scnerf_tpu_torch.dense_into.default" in loaded.operators  # level 0
         request = [x.cpu().numpy() for x in truck_rays(2 * BATCH - 100, seed=2)]
         want = serve.RenderService(fn, BATCH, device=cuda)(*request)
         before = mlp_cuda.launches
